@@ -1,0 +1,160 @@
+"""Tiled chimera scan: CUDA kernel wrapper (csrc/tilescan.cu) and its plain
+PyTorch version.
+
+Replaces the Pallas kernel `sicelore_tpu/ops/tilescan_tpu.py::_tile_kernel`.
+Both take the nibble tile rows of `models.readscan.build_tiles`
+([T, TILE/2 + 16] uint8: two 4-bit codes a byte, then own_lo u16, own_hi u16,
+tlen u16, pad, g0 u32, rlen u32) and return [3, T] int32: the number of
+distinct confirmed split positions and the first two (tile-local; -1 when
+absent). The plain version is a torch port of
+`sicelore_tpu/models/readscan.py::_make_internal_tile_inner`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sicelore_tpu.utils import dna
+from sicelore_tpu.utils.config import PipelineConfig
+from sicelore_tpu_torch.ops import _build, editdist, scan
+
+TILE = 1024
+TILE_META = 16
+ROW_BYTES = TILE // 2 + TILE_META
+K_TILE_SITES = 3    # captured run starts per direction per tile
+WI_CONFIRM = 160    # confirm window length (polyA run + UMI + BC + adapter)
+BIG = 10**9
+
+
+@dataclass(frozen=True, eq=False)
+class TileParams:
+    k: int
+    mc: int
+    m_adc: int
+    edmax: int
+    peq_adc: np.ndarray   # uint32 [4, 1]
+
+
+def tile_params(cfg: PipelineConfig) -> TileParams:
+    p = cfg.polyat
+    k = p.internal_pat_length
+    a = cfg.adapter3p
+    return TileParams(
+        k=k, mc=scan.min_count_for(k, p.internal_fraction_at_in_polyat),
+        m_adc=len(a.sequence_complete),
+        edmax=a.max_complete_seq_needleman_mismatches,
+        peq_adc=editdist.build_peq(dna.encode(a.sequence_complete)[None, :]))
+
+
+def _unpack(rows: torch.Tensor):
+    nib = rows[:, :TILE // 2]
+    codes = torch.stack([nib >> 4, nib & 0xF], dim=-1).reshape(
+        rows.shape[0], TILE).to(torch.int8)
+    mb = rows[:, TILE // 2:].to(torch.int64)
+    own_lo = mb[:, 0] | (mb[:, 1] << 8)
+    own_hi = mb[:, 2] | (mb[:, 3] << 8)
+    tlen = mb[:, 4] | (mb[:, 5] << 8)
+    g0 = mb[:, 8] | (mb[:, 9] << 8) | (mb[:, 10] << 16) | (mb[:, 11] << 24)
+    rlen = (mb[:, 12] | (mb[:, 13] << 8) | (mb[:, 14] << 16)
+            | (mb[:, 15] << 24))
+    return codes, own_lo, own_hi, tlen, g0, rlen
+
+
+def tile_scan_plain(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
+    """Plain PyTorch tile scan: rows [T, TILE/2 + 16] uint8 -> [3, T] int32."""
+    tile_scan_plain.launches += 1
+    S = rows.shape[0]
+    dev = rows.device
+    K, Wi, k = K_TILE_SITES, WI_CONFIRM, p.k
+    codes, own_lo, own_hi, tlen, g0, rlen = _unpack(rows)
+    pos = torch.arange(TILE - k + 1, device=dev)[None, :]
+    site_lists = []
+    for base in (dna.A, dna.T):
+        counts = scan._rolling_count((codes == base).to(torch.int32), k)
+        ok = ((counts >= p.mc) & (pos >= own_lo[:, None])
+              & (pos < own_hi[:, None]) & (pos <= tlen[:, None] - k))
+        rs = ok & ~F.pad(ok[:, :-1], (1, 0))
+        ss = []
+        for _ in range(K):
+            j = torch.where(rs, pos, BIG).min(dim=1).values
+            ss.append(torch.where(j < BIG, j, -1))
+            rs = rs & (pos > j[:, None])
+        site_lists.append(torch.stack(ss, dim=1))        # [S, K]
+    sA, sT = site_lists
+    # one stacked confirm over the 2K windows of each tile: the windows of
+    # gather_window(codes, tlen, start, Wi), A-sites reverse-complemented
+    src = torch.arange(S, device=dev).repeat_interleave(K).repeat(2)
+    starts = torch.cat([sA.reshape(-1), sT.reshape(-1) - Wi])
+    idx = starts[:, None] + torch.arange(Wi, device=dev)[None, :]
+    valid = (idx >= 0) & (idx < tlen[src][:, None])
+    wins = codes[src[:, None], idx.clamp(0, TILE - 1)]
+    wins = torch.where(valid, wins, dna.PAD)
+    comp = torch.as_tensor(dna._COMP, device=dev)
+    wins = torch.cat([comp[wins[:S * K].long()].flip(1), wins[S * K:]])
+    ed6, pos6 = scan.adapter_search(wins, p.peq_adc, p.m_adc)
+    a_ed, t_ed = ed6[:S * K].reshape(S, K), ed6[S * K:].reshape(S, K)
+    a_pos, t_pos = pos6[:S * K].reshape(S, K), pos6[S * K:].reshape(S, K)
+    a_split = sA + Wi - 1 - a_pos + p.m_adc
+    t_split = sT - Wi + t_pos - (p.m_adc - 1)
+    spl = torch.cat([a_split, t_split], dim=1)                 # [S, 2K]
+    okc = torch.cat([(sA >= 0) & (a_ed <= p.edmax),
+                     (sT >= 0) & (t_ed <= p.edmax)], dim=1)
+    gpos = g0[:, None] + spl
+    okc = okc & (gpos > 50) & (gpos < rlen[:, None] - 50)
+    n = torch.zeros(S, dtype=torch.int64, device=dev)
+    s0 = torch.full((S,), -1, dtype=torch.int64, device=dev)
+    s1 = s0.clone()
+    taken = []
+    for i2 in range(2 * K):
+        dup = torch.zeros(S, dtype=torch.bool, device=dev)
+        for j2, tk in taken:
+            dup = dup | (tk & (spl[:, j2] == spl[:, i2]))
+        take = okc[:, i2] & ~dup
+        s0 = torch.where(take & (n == 0), spl[:, i2], s0)
+        s1 = torch.where(take & (n == 1), spl[:, i2], s1)
+        n = n + take.to(torch.int64)
+        taken.append((i2, take))
+    return torch.stack([n, s0, s1], dim=0).to(torch.int32)
+
+
+tile_scan_plain.launches = 0
+
+
+def kernel_params(p: TileParams) -> np.ndarray:
+    """The int32 parameter array matching csrc/tilescan.cu::TileParams."""
+    return np.ascontiguousarray(np.concatenate([
+        np.asarray([p.k, p.mc, p.m_adc, p.edmax, WI_CONFIRM], np.int32),
+        p.peq_adc[:, 0].view(np.int32)]))
+
+
+def tile_scan(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
+    """Chimera scan of nibble tile rows [T, TILE/2 + 16] uint8 -> [3, T]
+    int32 (n, split0, split1)."""
+    if rows.dim() != 2 or rows.shape[1] != ROW_BYTES:
+        raise ValueError(f"rows must be [T, {ROW_BYTES}], "
+                         f"got {tuple(rows.shape)}")
+    if rows.device.type == "cpu":
+        return tile_scan_plain(rows, p)
+    if rows.dtype != torch.uint8:
+        raise ValueError("rows must be uint8")
+    if not (1 <= p.k <= 31 and 1 <= p.m_adc <= 31):
+        raise NotImplementedError(
+            f"tile kernel takes k <= 31 and an adapter <= 31 bases "
+            f"(k={p.k}, m={p.m_adc})")
+    T = rows.shape[0]
+    out = torch.empty((3, T), dtype=torch.int32, device=rows.device)
+    if T == 0:
+        return out
+    rows_tm = rows.t().contiguous()           # text-major: coalesced loads
+    prm = kernel_params(p)
+    fn = _build.bind("tilescan", "tilescan_launch", 3, 2)
+    _build.check(fn(rows_tm.data_ptr(), out.data_ptr(), prm.ctypes.data, T,
+                    prm.size, _build.stream_handle(rows.device)), "tilescan")
+    tile_scan.launches += 1
+    return out
+
+
+tile_scan.launches = 0

@@ -1,0 +1,167 @@
+"""The port's plain two-half edge scan against sicelore_tpu's
+make_edge_scan2_jnp (exact equality of every row), for both chemistries."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sicelore_tpu.models import readscan as jax_readscan
+from sicelore_tpu.ops import edgescan as jax_eg
+from sicelore_tpu.utils import synth
+from sicelore_tpu.utils.config import PipelineConfig
+from sicelore_tpu_torch.ops import edgescan as eg
+from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
+
+
+def _partial_tso(rng, cfg):
+    """A FWD read whose TSO has > maxNeedlemanMismatches errors but keeps an
+    exact 9-base run (the consecutive-match bailout accepts it)."""
+    wl = synth.make_whitelist(rng, 1)
+    seq = bytearray(synth.make_read(rng, wl[0], cdna_len=400)["seq"])
+    w = cfg.tso3p.window_for_tso_search
+    seq[9:w] = b"C" * (w - 9)
+    return bytes(seq)
+
+
+def _reads(rng, chem: str, n: int = 96):
+    """~96 reads: both strands, long (> 2E) and short (overlapping halves),
+    garbage, a partial TSO, very short reads and reads with N bases."""
+    cfg = PipelineConfig()
+    make = synth.make_read_5p if chem == "5p" else synth.make_read
+    wl = synth.make_whitelist(rng, 32)
+    seqs = []
+    for i in range(n - 8):
+        if i % 7 == 3:
+            clen = int(rng.integers(1200, 4000))
+        elif i % 5 == 2:
+            clen = int(rng.integers(40, 260))
+        else:
+            clen = int(rng.integers(260, 560))
+        s = bytearray(make(rng, wl[i % 32], cdna_len=clen, error_rate=0.05,
+                           reverse=bool(i % 2))["seq"])
+        if i % 6 == 1:      # N near the head and near the tail
+            s[int(rng.integers(0, 120))] = ord("N")
+            s[len(s) - 1 - int(rng.integers(0, 120))] = ord("N")
+        seqs.append(bytes(s))
+    for L in (5, 15, 200, 400, 700):
+        seqs.append(synth.random_seq(rng, L).encode())
+    seqs.append(_partial_tso(rng, cfg))
+    seqs.append(b"N" * 50 + b"A" * 30 + b"N" * 40)
+    seqs.append(b"")
+    quals = [bytes(33 + int(x) for x in rng.integers(3, 40, len(s)))
+             for s in seqs]
+    return seqs, quals
+
+
+def _jax_meta(cfg, head, tail, lens):
+    model = jax_readscan.ReadScanModel(cfg)
+    body = jax_eg.make_edge_scan2_jnp(cfg)
+    return np.asarray(body(jnp.asarray(head), jnp.asarray(tail),
+                           jnp.asarray(lens), model.peq_ad, model.peq_adc,
+                           model.peq_tso))
+
+
+@pytest.mark.parametrize("chem", ["3p", "5p"])
+def test_plain_edge_body_matches_jnp(chem):
+    rng = np.random.default_rng(21 if chem == "3p" else 22)
+    cfg = PipelineConfig()
+    cfg.chemistry = chem
+    seqs, quals = _reads(rng, chem)
+    head, tail, _, lens, _ = jax_eg.encode_two_half_int8(seqs, quals)
+    ref = _jax_meta(cfg, head, tail, lens)
+
+    codes, qv2, true_lens, qsum = eg.encode_two_half(seqs, quals)
+    p = eg.edge_params(cfg)
+    got = edge_scan2(torch.from_numpy(codes).t().contiguous(),
+                     torch.from_numpy(true_lens), p).numpy()
+    assert got.dtype == np.int32 and got.shape == ref.shape
+    for r in range(ref.shape[0]):
+        bad = np.nonzero(ref[r] != got[r])[0]
+        assert len(bad) == 0, (chem, r, bad[:5], ref[r, bad[:5]],
+                               got[r, bad[:5]])
+    assert ref[eg.ROW_STRANDED].mean() > 0.6
+
+    ref_out = jax_eg.finalize_meta_np(ref, lens, cfg)
+    out = eg.finalize_meta_np(got, true_lens, cfg)
+    jax_eg.compute_qvs2_np(*jax_eg.encode_two_half_int8(seqs, quals)[2:4],
+                           ref_out, 16, chem == "5p")
+    eg.compute_qvs2_np(qv2, true_lens, out, 16, chem == "5p", qsum)
+    assert set(out) == set(ref_out)
+    for k in ref_out:
+        np.testing.assert_array_equal(out[k], ref_out[k], err_msg=k)
+
+
+def test_plain_body_counts_and_tso_bailout():
+    """The wrapper takes the plain body for CPU tensors (and counts it);
+    the partial-TSO read reports T= through the bailout."""
+    rng = np.random.default_rng(5)
+    cfg = PipelineConfig()
+    seq = _partial_tso(rng, cfg)
+    codes, _, lens, _ = eg.encode_two_half([seq], [b"I" * len(seq)])
+    before = eg.edge_scan2_plain.launches
+    meta = edge_scan2(torch.from_numpy(codes).t().contiguous(),
+                      torch.from_numpy(lens), eg.edge_params(cfg)).numpy()
+    assert eg.edge_scan2_plain.launches == before + 1
+    assert edge_scan2.launches == 0
+    assert meta[eg.ROW_STRANDED, 0] and meta[eg.ROW_IS_FWD, 0]
+    assert meta[eg.ROW_TSO_ED, 0] > cfg.tso3p.max_needleman_mismatches
+    assert meta[eg.ROW_TSO_END, 0] >= 0
+
+
+def test_encoder_matches_jax_layouts():
+    """Clean reads: the port's int8 halves equal JAX's 2-bit composite
+    unpacked; N reads: they equal JAX's exact int8 encoder. The qual
+    matrix, lengths and qual sums match the native/numpy composite."""
+    rng = np.random.default_rng(3)
+    seqs, quals = _reads(rng, "3p", n=48)
+    codes, qv2, lens, qsum = eg.encode_two_half(seqs, quals)
+    packed, qv2_j, lens_j, dirty, qsum_j = jax_eg.encode_composite_tm(
+        seqs, quals)
+    head, tail, lens_u = (np.asarray(a) for a in
+                          jax_eg.unpack_tm(jnp.asarray(packed)))
+    clean = ~dirty
+    assert dirty.any() and clean.any()
+    np.testing.assert_array_equal(codes[clean, :eg.E], head[clean])
+    np.testing.assert_array_equal(codes[clean, eg.E:], tail[clean])
+    h8, t8, qv8, lens8, qsum8 = jax_eg.encode_two_half_int8(seqs, quals)
+    np.testing.assert_array_equal(codes[dirty, :eg.E], h8[dirty])
+    np.testing.assert_array_equal(codes[dirty, eg.E:], t8[dirty])
+    for a, b in ((qv2, qv2_j), (lens, lens_j), (lens, lens_u),
+                 (qsum, qsum_j), (qv2, qv8), (qsum, qsum8)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_patterns_and_used_list_peq_match_jax_model():
+    """The 'weights': the pattern bitmasks of one PipelineConfig and the
+    Peq of one bound used-barcode list are identical on both sides."""
+    from sicelore_tpu.utils import dna
+    from sicelore_tpu_torch.models.readscan import ReadScanModel
+
+    rng = np.random.default_rng(9)
+    pats, _ = dna.encode_batch(
+        [w.encode() for w in synth.make_whitelist(rng, 300)], 16)
+    for chem in ("3p", "5p"):
+        cfg = PipelineConfig()
+        cfg.chemistry = chem
+        model = jax_readscan.ReadScanModel(cfg)
+        for mine, ref in zip(eg.patterns_from_cfg(cfg),
+                             (model.peq_ad, model.peq_adc, model.peq_tso)):
+            assert mine.dtype == np.uint32
+            np.testing.assert_array_equal(mine, np.asarray(ref))
+    model.prepare_search(pats, 300)
+    port = ReadScanModel(cfg, device="cpu")
+    port.prepare_search(pats, 300)
+    np.testing.assert_array_equal(port._peq_raw, model._peq_raw)
+    ref_bc = np.asarray(model._peq_bc)            # padded to 1024 columns
+    np.testing.assert_array_equal(port._peq_bc.numpy().view(np.uint32),
+                                  ref_bc[:, :300])
+    assert not ref_bc[:, 300:].any()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.prepare_search(pats, 300, mode="prefilter")
+
+
+def test_kernel_envelope_rejects_5p_on_cuda_only():
+    cfg = PipelineConfig()
+    assert eg.edge_params(cfg).kernel_unsupported == ""
+    cfg.chemistry = "5p"
+    assert "5p" in eg.edge_params(cfg).kernel_unsupported

@@ -1,0 +1,102 @@
+"""The CUDA kernels against their plain PyTorch versions on the card (exact
+equality), at small shapes. Needs a GPU and nvcc: skipped elsewhere. Run on
+the card with `python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
+--noconftest` (tests/conftest.py imports jax, which a GPU host need not
+have; nothing here uses jax)."""
+import numpy as np
+import pytest
+import torch
+
+from sicelore_tpu.utils import dna, synth
+from sicelore_tpu.utils.config import PipelineConfig
+from sicelore_tpu_torch.models import readscan
+from sicelore_tpu_torch.ops import bcsearch, editdist
+from sicelore_tpu_torch.ops import edgescan as eg
+from sicelore_tpu_torch.ops import tilescan_cuda as ts
+from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def reads():
+    rng = np.random.default_rng(4)
+    wl = synth.make_whitelist(rng, 256)
+    seqs = []
+    for i in range(600):
+        if i % 25 == 0:
+            r = synth.make_chimera(rng, wl[i % 256], wl[(i + 9) % 256],
+                                   cdna_len=500, error_rate=0.04)
+        elif i % 25 == 1:
+            r = synth.make_read(rng, wl[i % 256],
+                                cdna_len=int(rng.integers(2000, 5000)),
+                                error_rate=0.04, reverse=bool(i % 2))
+        elif i % 25 == 2:
+            r = {"seq": synth.random_seq(rng, int(rng.integers(0, 900)))
+                 .encode()}
+        else:
+            r = synth.make_read(rng, wl[i % 256],
+                                cdna_len=int(rng.integers(100, 700)),
+                                error_rate=0.05, reverse=bool(i % 2))
+        s = bytearray(r["seq"])
+        if i % 9 == 0 and s:
+            s[int(rng.integers(0, len(s)))] = ord("N")
+        seqs.append(bytes(s))
+    return wl, seqs
+
+
+def test_edge_kernel_matches_plain(dev, reads):
+    _, seqs = reads
+    codes, _, lens, _ = eg.encode_two_half(seqs, [b"I" * len(s) for s in seqs])
+    ct = torch.from_numpy(codes).to(dev).t().contiguous()
+    ld = torch.from_numpy(lens).to(dev)
+    p = eg.edge_params(PipelineConfig())
+    k = edge_scan2(ct, ld, p)
+    pl = eg.edge_scan2_plain(ct[:eg.E].t(), ct[eg.E:].t(), ld, p)
+    torch.cuda.synchronize()
+    assert torch.equal(k, pl)
+
+
+def test_edge_kernel_refuses_5p(dev):
+    cfg = PipelineConfig()
+    cfg.chemistry = "5p"
+    ct = torch.full((2 * eg.E, 4), dna.PAD, dtype=torch.int8, device=dev)
+    with pytest.raises(NotImplementedError, match="5p"):
+        edge_scan2(ct, torch.zeros(4, dtype=torch.int32, device=dev),
+                   eg.edge_params(cfg))
+
+
+@pytest.mark.parametrize("nvalid,track_pos", [(256, True), (200, False),
+                                              (1, True)])
+def test_sweep_kernel_matches_plain(dev, reads, nvalid, track_pos):
+    wl, seqs = reads
+    codes, _, lens, _ = eg.encode_two_half(seqs, [b"I" * len(s) for s in seqs])
+    meta = eg.edge_scan2_plain(torch.from_numpy(codes[:, :eg.E]),
+                               torch.from_numpy(codes[:, eg.E:]),
+                               torch.from_numpy(lens),
+                               eg.edge_params(PipelineConfig()))
+    wins = meta[eg.ROW_BC0:].to(torch.uint8).contiguous().to(dev)
+    pats, _ = dna.encode_batch([w.encode() for w in wl], 16)
+    peq = bcsearch.peq_device(editdist.build_peq(pats), dev)
+    k = bcsearch.bc_sweep(wins, peq, nvalid, 16, track_pos)
+    pl = bcsearch.bc_sweep_plain(wins, peq, nvalid, 16, track_pos)
+    torch.cuda.synchronize()
+    assert torch.equal(k, pl)
+
+
+def test_tile_kernel_matches_plain(dev, reads):
+    _, seqs = reads
+    cfg = PipelineConfig()
+    rows, _, _ = readscan.build_tiles(seqs, cfg)
+    rd = torch.tensor(rows, device=dev)
+    k = ts.tile_scan(rd, ts.tile_params(cfg))
+    pl = ts.tile_scan_plain(rd, ts.tile_params(cfg))
+    torch.cuda.synchronize()
+    assert torch.equal(k, pl) and int((k[0] > 0).sum()) > 0
