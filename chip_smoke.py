@@ -5,13 +5,16 @@ Phases (one JSON line each, with its seconds):
 
   env       nvidia-smi name and power limit, torch/CUDA/nvcc versions,
             whether the native host codecs loaded, the kernel build time.
-  kernels   every CUDA kernel of the scanfastq path against its plain
-            PyTorch version on the card, at the main path's shapes: the
-            edge scan over a 32,768-read chunk, the whitelist sweep of its
-            BC windows against 8,192 and 49,152 barcodes, the chimera scan
-            over all tiles of the chunk. Tolerance: exact (integer outputs;
-            mismatches must be 0). Median ms of each over >= 5 timed calls
-            (CUDA events), each call on freshly mutated content.
+  kernels   every CUDA kernel against its plain PyTorch version on the
+            card, at the main paths' shapes: the edge scan over a
+            32,768-read chunk, the whitelist sweep of its BC windows against
+            8,192 and 49,152 barcodes, the chimera scan over all tiles of
+            the chunk; the band aligner over 8,192 pairs at (Lc = 512,
+            W = 32), 8,192 at (Lc = 1,024, W = 64) and 256 at (Lc = 2,048,
+            W = 64). Tolerance: exact (integer outputs; mismatches must be
+            0). Median ms of each over >= 5 timed calls (CUDA events), each
+            call on freshly mutated content. Beside each time stands the
+            kernel's bound on this card (see BOUNDS below).
   pipeline  `ScanFastqPipeline.run` on `cuda` over a synthetic run of
             131,072 reads in 4 fastq files (8,192 cells drawn from a
             65,536-barcode whitelist; 4% error, ~6% 2-8 kb reads, ~2%
@@ -22,9 +25,39 @@ Phases (one JSON line each, with its seconds):
   parity    the same pipeline on a 4,096-read subset on `cuda` and on `cpu`
             (plain bodies): every output file byte-identical, and assigned
             barcodes agreeing with the generator's truth.
+  consensus `compute_consensus` on `cuda` over a synthetic tagged BAM of
+            32,768 molecules (50% one read, 20% two, 30% 3-12 reads;
+            400-900 nt cDNA at 3% error; ~1% of the multi-read molecules
+            with an N; four over 2,048 nt), written with the port's
+            BamWriter. Launch counts are zeroed just before and read just
+            after: the band kernel must have launched, no plain version
+            may have run. Molecules and UMIs/s; a sample of multi-read
+            consensuses must lie within 2% edit distance of their truth.
+            A second, instrumented run (timers with a device sync around
+            each stage) gives the split of the phase's time.
+  consensus_parity  the same consensus on a 2,048-molecule subset on `cuda`
+            and on `cpu`: output fastq and stats byte-identical.
 
 Then: the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises: no ok line, exit != 0.
+
+BOUNDS. `bound_ms` is the least time this card could take for a kernel's
+work at this run's inputs: the larger of its bytes (every input read once,
+every output written once) over 3.35 TB/s and its int32 operations over
+132 SMs x 64 lanes x the card's maximum SM clock (nvidia-smi
+clocks.max.sm). Operation counts, from the kernels' own arithmetic:
+  Myers column (csrc/myers.cuh myers_step): 21.
+  edgescan, a read: four Myers searches (3 x awin + twin columns), two
+    32-row run recurrences (awin + twin columns x 32 rows x 3), the bailout
+    pairs (twin x npairs x 4) and the two run scans (E + win_p + k columns
+    x 6; the head scan stops after win_p windows when it finds no run).
+  bcsweep: reads x barcodes x window columns x 21.
+  tilescan, a tile: two run scans over 1,024 columns x 6; the Myers
+    confirms run only at the few sites found and are not counted.
+  bandalign: sum over pairs of clen x W band cells x 32 (cell index and
+    validity 4, substitution score 5, diagonal/vertical/max 3, gap closure
+    13, clamp 1, the two move tests 6); clen is this run's, not Lc.
+No PyTorch call computes any of the four functions: `library_ms` is null.
 """
 from __future__ import annotations
 
@@ -47,6 +80,16 @@ SWEEP_LISTS = (8_192, 49_152)
 N_PARITY = 4_096
 TIMED_CALLS = 5
 SEED = 20_240_601
+BAND_PAIRS = 8_192
+BAND_SHAPES = ((512, 32, BAND_PAIRS, 300, 490),      # Lc, W, pairs, truth
+               (1024, 64, BAND_PAIRS, 520, 900),     # lengths lo, hi
+               (2048, 64, 256, 1100, 1900))
+N_MOLECULES = 32_768
+N_CONS_PARITY = 2_048
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES = 132 * 64
+MYERS_OPS = 21
+BAND_CELL_OPS = 32
 
 
 def emit(obj) -> None:
@@ -59,7 +102,7 @@ def make_file(args) -> int:
     path, seed, cells = args
     import numpy as np
 
-    from sicelore_tpu.utils import synth
+    from sicelore_tpu_torch.utils import synth
     rng = np.random.default_rng(seed)
     with open(path, "wb") as fh:
         for i in range(READS_PER_FILE):
@@ -130,16 +173,156 @@ def compare(name, fn_k, fn_p, variants):
             t, outs = timed(fn, [v], sync)
             ms[tag].append(t)
             res[tag] = outs[0]
-        k, p = res["k"], res["p"]
-        if k.shape != p.shape or k.dtype != p.dtype:
-            raise SystemExit(f"{name}: kernel {tuple(k.shape)} {k.dtype} vs "
-                             f"plain {tuple(p.shape)} {p.dtype}")
-        mism += int((k != p).sum())
-        if k.numel():
-            maxd = max(maxd, int((k.long() - p.long()).abs().max()))
+        for k, p in zip(*(r if isinstance(r, tuple) else (r,)
+                          for r in (res["k"], res["p"]))):
+            if k.shape != p.shape or k.dtype != p.dtype:
+                raise SystemExit(
+                    f"{name}: kernel {tuple(k.shape)} {k.dtype} vs plain "
+                    f"{tuple(p.shape)} {p.dtype}")
+            mism += int((k != p).sum())
+            if k.numel():
+                maxd = max(maxd, int((k.int() - p.int()).abs().max()))
+        del res
     med = {t: sorted(v)[len(v) // 2] for t, v in ms.items()}
     return {"mismatches": mism, "max_abs_err": maxd, "ms": med["k"],
             "plain_ms": med["p"], "calls": len(variants)}
+
+
+def bound(n_bytes: int, n_ops: int, sm_hz: float) -> dict:
+    """The least time (ms) this card could take for n_bytes moved and
+    n_ops int32 operations, and which of the two bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / (INT32_LANES * sm_hz) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "operations": int(n_ops)}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def levenshtein(a: bytes, b: bytes) -> int:
+    import numpy as np
+    x, y = np.frombuffer(a, np.uint8), np.frombuffer(b, np.uint8)
+    idx = np.arange(len(y) + 1)
+    prev = idx.copy()
+    for i, ch in enumerate(x, 1):
+        cur = np.concatenate([[i], np.minimum(prev[1:] + 1,
+                                              prev[:-1] + (y != ch))])
+        prev = np.minimum.accumulate(cur - idx) + idx   # moves along y
+    return int(prev[-1])
+
+
+def band_pairs(rng, Lc, W, n_pairs, lo, hi, dev):
+    """`band_align` arguments on the card for one bucket shape: molecules
+    of 5 reads (4 pairs) of a random truth of lo..hi bases at 3% error."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.utils import synth
+    mols = []
+    for _ in range(n_pairs // 4):
+        truth = synth.random_seq(rng, int(rng.integers(lo, hi))).encode()
+        mols.append([synth.mutate_np(rng, truth, 0.03) for _ in range(5)])
+    center, clens, reads, rlens, mids = synth.pair_arrays(mols, Lc, W)
+    first = np.searchsorted(mids, np.arange(len(mols)))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+                 (reads, rlens, mids, center[first], clens[first]))
+
+
+def consensus_molecules(rng, n):
+    """bench.py's consensus mix: 50% one read, 20% two, 30% 3-12 reads of a
+    400-900 nt truth at 3% error; ~1% of the multi-read molecules carry an
+    N; the last four are over 2,048 nt. Returns (molecules, truths)."""
+    from sicelore_tpu_torch.utils import synth
+    mols, truths = [], []
+    for m in range(n):
+        u = rng.random()
+        depth = 1 if u < 0.5 else 2 if u < 0.7 else int(rng.integers(3, 13))
+        length = int(rng.integers(400, 900))
+        if m >= n - 4:
+            depth, length = 3, int(rng.integers(2100, 2300))
+        truth = synth.random_seq(rng, length).encode()
+        reads = [synth.mutate_np(rng, truth, 0.03) for _ in range(depth)]
+        if depth > 2 and rng.random() < 0.01:
+            r = bytearray(reads[1])
+            r[int(rng.integers(0, len(r)))] = 78
+            reads[1] = bytes(r)
+        mols.append(reads)
+        truths.append(truth)
+    return mols, truths
+
+
+def write_bam(path, mols, rng, prefix):
+    """The molecules as a tagged BAM; returns {"BC-U8": molecule index}."""
+    from sicelore_tpu_torch.io.bam import BamHeader, BamWriter
+    from sicelore_tpu_torch.utils import synth
+    keys = {}
+    hdr = BamHeader("@SQ\tSN:chr1\tLN:1000000\n", [("chr1", 1_000_000)])
+    with BamWriter(path, hdr, level=1) as w:
+        for rec in synth.tagged_records(mols, rng, prefix):
+            keys[f"{rec.get_tag('BC')}-{rec.get_tag('U8')}"] = \
+                int(rec.qname[len(prefix):].split("r")[0])
+            w.write(rec)
+    return keys
+
+
+def read_fastq_records(path):
+    with open(path, "rb") as fh:
+        lines = fh.read().split(b"\n")
+    return [(lines[i][1:].decode(), lines[i + 1], lines[i + 3])
+            for i in range(0, len(lines) - 1, 4)]
+
+
+def consensus_split(bam, out_fastq, engine) -> dict:
+    """compute_consensus once more with a timer around each stage (device
+    stages end in a synchronize): seconds by stage."""
+    import torch
+
+    from sicelore_tpu_torch.ops import poa, poa_cuda
+    from sicelore_tpu_torch.pipeline import consensus
+    secs: dict[str, float] = {}
+
+    def timed_fn(owner, attr, key, sync=False):
+        fn = getattr(owner, attr)
+
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t
+            return out
+        wrapper.launches = getattr(fn, "launches", 0)
+        setattr(owner, attr, wrapper)
+        return lambda: setattr(owner, attr, fn)
+
+    undo = [
+        timed_fn(consensus, "LongreadParser", "bam_parse"),
+        timed_fn(consensus, "MoleculeDataset", "molecule_grouping"),
+        timed_fn(poa, "consensus_reads", "host_engine"),
+        timed_fn(engine, "_build_bucket", "bucket_build"),
+        timed_fn(engine, "_run_batch", "batches_total", sync=True),
+        timed_fn(poa_cuda, "band_align", "kernel", sync=True),
+        timed_fn(poa_cuda, "segment_votes", "votes", sync=True),
+        timed_fn(poa_cuda, "assemble_votes", "assembly", sync=True),
+    ]
+    t = time.perf_counter()
+    try:
+        consensus.compute_consensus(bam, out_fastq, engine=engine)
+    finally:
+        for u in undo:
+            u()
+    secs["total"] = time.perf_counter() - t
+    # within a batch: encode + upload before the kernel, decode after
+    secs["encode_upload_decode"] = secs["batches_total"] - sum(
+        secs.get(k, 0.0) for k in ("kernel", "votes", "assembly"))
+    secs["select_write"] = secs["total"] - sum(
+        secs.get(k, 0.0) for k in ("bam_parse", "molecule_grouping",
+                                   "host_engine", "bucket_build",
+                                   "batches_total"))
+    return {k: round(v, 3) for k, v in secs.items()}
 
 
 def main() -> int:
@@ -149,7 +332,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from sicelore_tpu.utils import synth
+    from sicelore_tpu_torch.utils import synth
 
     # synthetic inputs and outputs (~0.5 GB): inside the checkout, removed
     # at the end
@@ -176,15 +359,17 @@ def _run(pool, wl, cells, work, dev) -> int:
     import numpy as np
     import torch
 
-    from sicelore_tpu.io import fastq, native
-    from sicelore_tpu.pipeline import readname
-    from sicelore_tpu.utils import dna
-    from sicelore_tpu.utils.config import PipelineConfig
+    from sicelore_tpu_torch.io import fastq, native
+    from sicelore_tpu_torch.pipeline import readname
+    from sicelore_tpu_torch.utils import dna
+    from sicelore_tpu_torch.utils.config import PipelineConfig
     from sicelore_tpu_torch.models import readscan
     from sicelore_tpu_torch.ops import _build, bcsearch, editdist
     from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import poa_cuda, scan
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
+    from sicelore_tpu_torch.pipeline.consensus import compute_consensus
     from sicelore_tpu_torch.pipeline.scanfastq import ScanFastqPipeline
 
     t0 = time.time()
@@ -195,14 +380,19 @@ def _run(pool, wl, cells, work, dev) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    sm_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0])
     nvcc = _build.find_nvcc()
     nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True,
                               text=True, timeout=60).stdout.strip(
                               ).splitlines()[-1] if nvcc else None
     _build.build_all()
-    for stem in ("edgescan", "bcsweep", "tilescan"):
+    for stem in ("edgescan", "bcsweep", "tilescan", "bandalign"):
         _build.load(stem)
-    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+    emit({"phase": "env", "nvidia_smi": smi, "max_sm_mhz": sm_hz / 1e6,
+          "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": nvcc_ver,
           "gpu": torch.cuda.get_device_name(0),
           "hostenc": native.get_hostenc() is not None,
@@ -248,6 +438,13 @@ def _run(pool, wl, cells, work, dev) -> int:
         lambda c: eg.edge_scan2_plain(c[:eg.E].t(), c[eg.E:].t(), lens_d, ep),
         variants)
     meta = edge_scan2(codes_tm, lens_d, ep)
+    edge_ops = B * (
+        (3 * ep.awin + ep.twin) * MYERS_OPS
+        + (ep.awin + ep.twin) * 32 * 3
+        + ep.twin * len(scan.bail_pairs(ep.c1, ep.c2)) * 4
+        + (eg.E + ep.win_p + ep.k) * 6)
+    results["edgescan"].update(bound(nbytes(codes_tm, lens_d, meta),
+                                     edge_ops, sm_hz))
     wins = meta[eg.ROW_BC0:].to(torch.uint8).contiguous()
 
     def mutate_wins(w):
@@ -271,6 +468,9 @@ def _run(pool, wl, cells, work, dev) -> int:
             lambda w: bcsearch.bc_sweep_plain(w, peq, n_bc, m,
                                               track_pos=True),
             wvars)
+        results[f"bcsweep_{n_bc}"].update(bound(
+            nbytes(wins, peq) + 4 * B * 4,
+            B * n_bc * wins.shape[0] * MYERS_OPS, sm_hz))
     rows, _, _ = readscan.build_tiles(chunk.seqs, cfg)
     rows_d = torch.tensor(rows, device=dev)
     tp = ts.tile_params(cfg)
@@ -287,14 +487,51 @@ def _run(pool, wl, cells, work, dev) -> int:
         "tilescan", lambda r: ts.tile_scan(r, tp),
         lambda r: ts.tile_scan_plain(r, tp),
         [rows_d] + [mutate_tiles(rows_d) for _ in range(TIMED_CALLS)])
-    emit({"phase": "kernels", "reads": B, "tiles": int(rows.shape[0]),
+    n_tiles = int(rows.shape[0])
+    results["tilescan"].update(bound(
+        nbytes(rows_d) + 3 * n_tiles * 4, n_tiles * 2 * ts.TILE * 6, sm_hz))
+    del variants, wvars, rows_d, meta, wins, codes_tm
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 100)
+    for Lc, W, n_pairs, lo, hi in BAND_SHAPES:
+        reads_d, rl_d, mids_d, cmol_d, clm_d = band_pairs(
+            rng, Lc, W, n_pairs, lo, hi, dev)
+        P = reads_d.shape[0]
+        ar = torch.arange(P, device=dev)
+
+        def mutate_pairs(r):
+            """One substituted base per read, inside the read."""
+            r = r.clone()
+            col = (torch.rand(P, device=dev, generator=g)
+                   * rl_d.clamp(min=1)).long()
+            r[ar, col] = torch.where(
+                rl_d > 0, torch.randint(0, 4, (P,), device=dev, generator=g,
+                                        dtype=torch.int8), r[ar, col])
+            return r
+
+        key = f"bandalign_{Lc}_{W}"
+        results[key] = compare(
+            key,
+            lambda r: poa_cuda.band_align(r, rl_d, mids_d, cmol_d, clm_d,
+                                          Lc, W),
+            lambda r: poa_cuda.band_align_plain(r, rl_d, mids_d, cmol_d,
+                                                clm_d, Lc, W),
+            [reads_d] + [mutate_pairs(reads_d) for _ in range(TIMED_CALLS)])
+        band_cells = int(clm_d[mids_d.long()].sum()) * W
+        results[key].update(bound(
+            nbytes(reads_d, rl_d, mids_d, cmol_d, clm_d)
+            + P * (Lc + 1) * (1 + 4 * poa_cuda.K_INS) + 4 * P,
+            band_cells * BAND_CELL_OPS, sm_hz))
+        results[key].update({"pairs": P, "band_cells": band_cells})
+        del reads_d, rl_d, mids_d, cmol_d, clm_d
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "reads": B, "tiles": n_tiles,
           "tolerance": "exact", "results": results,
           "s": round(time.time() - t0, 2)})
     bad = {k: v["mismatches"] for k, v in results.items() if v["mismatches"]}
     if bad:
         raise SystemExit(f"kernel/plain mismatches: {bad}")
-    del variants, wvars, rows_d, meta, wins, codes_tm
-    torch.cuda.empty_cache()
 
     # ---- the main path: scanfastq on cuda ----
     counters = (edge_scan2, bcsearch.bc_sweep, ts.tile_scan,
@@ -369,27 +606,117 @@ def _run(pool, wl, cells, work, dev) -> int:
     if n_tot < 1000 or n_ok < 0.97 * n_tot:
         raise SystemExit(f"barcode truth agreement {n_ok}/{n_tot}")
 
+    # ---- the second main path: computeconsensus on cuda ----
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 200)
+    mols, truths = consensus_molecules(rng, N_MOLECULES)
+    keys = write_bam(work / "cons.bam", mols, rng, "m")
+    gen_s = time.time() - t0
+    cons_counters = (poa_cuda.band_align, poa_cuda.band_align_plain,
+                     poa_cuda.consensus_votes_plain)
+    engine = poa_cuda.BatchedConsensusEngine(device="cuda")
+    for c in cons_counters:
+        c.launches = 0
+    t_run = time.time()
+    cstats = compute_consensus(work / "cons.bam", work / "cons_cuda.fastq",
+                               engine=engine,
+                               log_json=work / "cons_cuda.fastq.log")
+    torch.cuda.synchronize()
+    cons_s = time.time() - t_run
+    launches["bandalign"] = poa_cuda.band_align.launches
+    cons_plain = {"band_align_plain": poa_cuda.band_align_plain.launches,
+                  "consensus_votes_plain":
+                      poa_cuda.consensus_votes_plain.launches}
+    recs = read_fastq_records(work / "cons_cuda.fastq")
+    multi = [r for r in recs if len(mols[keys[r[0].rsplit("-", 1)[0]]]) > 2
+             and len(truths[keys[r[0].rsplit("-", 1)[0]]]) <= 2048]
+    worst, n_far = 0.0, 0
+    for name, cons, qv in multi[::max(1, len(multi) // 256)]:
+        truth = truths[keys[name.rsplit("-", 1)[0]]]
+        if len(cons) != len(qv):
+            raise SystemExit(f"{name}: {len(cons)} bases, {len(qv)} QVs")
+        d = levenshtein(cons, truth) / len(truth)
+        worst = max(worst, d)
+        n_far += d > 0.02
+    emit({"phase": "consensus", "molecules": cstats["molecules"],
+          "written": cstats["written"], "records": cstats["total_records"],
+          "multi_read": len(multi), "run_s": round(cons_s, 3),
+          "umis_per_s": round(N_MOLECULES / cons_s, 1),
+          "launches": {"bandalign": launches["bandalign"]},
+          "plain_launches": cons_plain, "worst_truth_distance": worst,
+          "data_s": round(gen_s, 2), "s": round(time.time() - t0, 2)})
+    if launches["bandalign"] < 1 or any(cons_plain.values()):
+        raise SystemExit(f"consensus launches {launches['bandalign']}, "
+                         f"plain {cons_plain}")
+    if (cstats["molecules"] != N_MOLECULES or cstats["written"] != N_MOLECULES
+            or len(recs) != N_MOLECULES or n_far):
+        raise SystemExit(f"consensus: {cstats}, {n_far} sampled consensuses "
+                         f"beyond 2% of their truth (worst {worst:.4f})")
+
+    # where the phase's time goes: the same run again with a timer (and a
+    # device sync) around each stage
+    t0 = time.time()
+    split = consensus_split(work / "cons.bam", work / "cons_split.fastq",
+                            engine)
+    emit({"phase": "consensus_split", "seconds": split,
+          "s": round(time.time() - t0, 2)})
+    if (work / "cons_split.fastq").read_bytes() != \
+            (work / "cons_cuda.fastq").read_bytes():
+        raise SystemExit("instrumented consensus run differs from the first")
+
+    # ---- consensus parity: cuda vs cpu on a subset ----
+    t0 = time.time()
+    write_bam(work / "cons_sub.bam", mols[-N_CONS_PARITY:], rng, "s")
+    blobs = {}
+    for d in ("cuda", "cpu"):
+        out = work / f"cons_sub_{d}.fastq"
+        compute_consensus(work / "cons_sub.bam", out,
+                          engine=poa_cuda.BatchedConsensusEngine(device=d),
+                          log_json=str(out) + ".log")
+        blobs[d] = (out.read_bytes(), Path(str(out) + ".log").read_bytes())
+    emit({"phase": "consensus_parity", "molecules": N_CONS_PARITY,
+          "fastq_bytes": len(blobs["cuda"][0]),
+          "identical": blobs["cuda"] == blobs["cpu"],
+          "s": round(time.time() - t0, 2)})
+    if blobs["cuda"] != blobs["cpu"] or not blobs["cuda"][0]:
+        raise SystemExit("cuda/cpu consensus outputs differ")
+
     src = {"edgescan": ("sicelore_tpu_torch/csrc/edgescan.cu",
                         "sicelore_tpu/ops/edgescan_tpu.py:87", "edgescan"),
            "bcsweep": ("sicelore_tpu_torch/csrc/bcsweep.cu",
                        "sicelore_tpu/ops/bcsearch.py:34",
                        f"bcsweep_{SWEEP_LISTS[0]}"),
            "tilescan": ("sicelore_tpu_torch/csrc/tilescan.cu",
-                        "sicelore_tpu/ops/tilescan_tpu.py:51", "tilescan")}
+                        "sicelore_tpu/ops/tilescan_tpu.py:51", "tilescan"),
+           "bandalign": ("sicelore_tpu_torch/csrc/bandalign.cu",
+                         "sicelore_tpu/ops/poa_tpu.py:251",
+                         "bandalign_512_32")}
     kernels = []
     for name, (source, replaces, key) in src.items():
         r = results[key]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"]}
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": None}
         if name == "bcsweep":
             big = results[f"bcsweep_{SWEEP_LISTS[1]}"]
             entry.update({"n_barcodes": SWEEP_LISTS[0],
                           f"ms_n{SWEEP_LISTS[1]}": big["ms"],
                           f"plain_ms_n{SWEEP_LISTS[1]}": big["plain_ms"],
+                          f"bound_ms_n{SWEEP_LISTS[1]}": big["bound_ms"],
                           "max_abs_err": max(r["max_abs_err"],
                                              big["max_abs_err"])})
+        if name == "bandalign":
+            entry.update({"Lc": 512, "W": 32, "pairs": r["pairs"]})
+            for Lc, W, _, _, _ in BAND_SHAPES[1:]:
+                o = results[f"bandalign_{Lc}_{W}"]
+                entry.update({f"ms_{Lc}_{W}": o["ms"],
+                              f"plain_ms_{Lc}_{W}": o["plain_ms"],
+                              f"bound_ms_{Lc}_{W}": o["bound_ms"],
+                              f"pairs_{Lc}_{W}": o["pairs"]})
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           o["max_abs_err"])
         kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -2,9 +2,10 @@
 
 The JAX package `sicelore_tpu` stays the reference: every module here is
 held to its counterpart there on the same inputs (tests/test_torch_*.py).
-This package imports `torch` and never `jax`; the jax-free modules of
-`sicelore_tpu` (fastq/native codecs, DNA utils, config, read names, HTML
-report) are imported, not copied.
+This package imports `torch`, never `jax`, and nothing of `sicelore_tpu`:
+it keeps its own copy of every jax-free module it needs (codecs, BAM, DNA
+utils, config, read names, molecules, the host consensus engine, the HTML
+report).
 
 Each Pallas TPU kernel on a ported path has a hand-written CUDA C++ kernel
 for Hopper (`csrc/*.cu`, built with nvcc at first use by `ops._build`)
@@ -14,9 +15,10 @@ kernel or raises.
 
 Subpackages mirror `sicelore_tpu`:
   ops       kernels + plain torch bodies (editdist, scan, edgescan, bcsearch,
-            tilescan)
+            tilescan, poa_cuda) and the host consensus engine (poa)
   models    the read-scan model (pass bodies + async dispatch)
-  pipeline  scanfastq (Step 1)
+  pipeline  scanfastq (Step 1), consensus (Step 4b)
+  io, core, utils, report   host-side codecs, records and fixtures
 """
 
 __version__ = "0.1.0"

@@ -2,16 +2,21 @@
 
   python -m sicelore_tpu_torch scanfastq -d <fastq dir|file,...> -o <out>
          --whitelist <10x list> [--device cuda|cpu] ...
+  python -m sicelore_tpu_torch computeconsensus -I <tagged BAM> -O <fastq>
+         [--MAXREADS 20 --MINPS 3 --MAXPS 20 --refine --host-engine]
+         [--device cuda|cpu]
   python -m sicelore_tpu_torch env
 
-`scanfastq` takes the flags of `python -m sicelore_tpu scanfastq` plus
-`--device` (default cuda: the hand-written kernels; cpu runs the plain
-torch bodies). `env` reports the torch/CUDA build, the GPU, and whether
-nvcc, triton and the native host codecs are present.
+`scanfastq` and `computeconsensus` take the flags of the same commands of
+`python -m sicelore_tpu` plus `--device` (default cuda: the hand-written
+kernels; cpu runs the plain torch bodies). `env` reports the torch/CUDA
+build, the GPU, and whether nvcc, triton and the native host codecs are
+present.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import sys
 from pathlib import Path
@@ -50,7 +55,7 @@ def _add_scanfastq(sub):
 
 
 def cmd_scanfastq(args) -> int:
-    from sicelore_tpu.utils.config import PipelineConfig, load_config_xml
+    from sicelore_tpu_torch.utils.config import PipelineConfig, load_config_xml
     from sicelore_tpu_torch.pipeline.scanfastq import (ScanFastqPipeline,
                                                        load_whitelist)
 
@@ -87,10 +92,51 @@ def cmd_scanfastq(args) -> int:
     return 0
 
 
+def _add_computeconsensus(sub):
+    p = sub.add_parser("computeconsensus", help="per-molecule consensus "
+                       "fastq (reference ComputeConsensus; native engine, "
+                       "no spoa)")
+    p.add_argument("-I", "--INPUT", required=True,
+                   help="BC/U8-tagged BAM with US/CS sequence tags")
+    p.add_argument("-O", "--OUTPUT", required=True, help="output fastq")
+    p.add_argument("--MAXREADS", type=int, default=20)
+    p.add_argument("--MINPS", type=int, default=3)
+    p.add_argument("--MAXPS", type=int, default=20)
+    p.add_argument("--host-engine", action="store_true",
+                   help="the host consensus engine for every molecule")
+    p.add_argument("--refine", action="store_true",
+                   help="second alignment pass re-centered on the pass-1 "
+                        "consensus (about twice the device time)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda: the CUDA kernel; cpu: plain torch bodies")
+    return p
+
+
+def cmd_computeconsensus(args) -> int:
+    from sicelore_tpu_torch.pipeline.consensus import compute_consensus
+
+    engine = None
+    if not args.host_engine:
+        # a device or kernel that fails raises: the host engine never
+        # stands in unasked
+        from sicelore_tpu_torch.ops.poa_cuda import BatchedConsensusEngine
+        engine = BatchedConsensusEngine(maxreads=args.MAXREADS,
+                                        device=args.device)
+        if args.refine:
+            engine = functools.partial(engine, refine=True)
+    stats = compute_consensus(args.INPUT, args.OUTPUT,
+                              maxreads=args.MAXREADS, minps=args.MINPS,
+                              maxps=args.MAXPS, engine=engine,
+                              log_json=str(args.OUTPUT) + ".log")
+    print(f"computeconsensus done: {stats['written']}/{stats['molecules']} "
+          f"molecules")
+    return 0
+
+
 def cmd_env(args) -> int:
     import torch
 
-    from sicelore_tpu.io import native
+    from sicelore_tpu_torch.io import native
     from sicelore_tpu_torch.ops import _build
 
     print(f"python {sys.version.split()[0]}")
@@ -110,9 +156,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m sicelore_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_scanfastq(sub)
+    _add_computeconsensus(sub)
     sub.add_parser("env", help="report the torch/CUDA/kernel toolchain")
     args = ap.parse_args(argv)
-    return {"scanfastq": cmd_scanfastq, "env": cmd_env}[args.cmd](args)
+    return {"scanfastq": cmd_scanfastq,
+            "computeconsensus": cmd_computeconsensus,
+            "env": cmd_env}[args.cmd](args)
 
 
 if __name__ == "__main__":

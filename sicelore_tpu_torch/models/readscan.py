@@ -22,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sicelore_tpu.utils import dna
-from sicelore_tpu.utils.config import PipelineConfig
+from sicelore_tpu_torch.utils import dna
+from sicelore_tpu_torch.utils.config import PipelineConfig
 from sicelore_tpu_torch.device import resolve
 from sicelore_tpu_torch.ops import bcsearch, editdist
 from sicelore_tpu_torch.ops import edgescan as eg2
@@ -71,7 +71,7 @@ def build_tiles(seqs: list[bytes], cfg: PipelineConfig):
     Returns (rows [T, TILE/2 + TILE_META] uint8 — nibble codes plus meta
     (own_lo u16, own_hi u16, tlen u16, pad, g0 u32, rlen u32) — read_idx
     [T] int32, g0s [T] int32); T == 0 when no read qualifies."""
-    from sicelore_tpu.io import native as _native
+    from sicelore_tpu_torch.io import native as _native
 
     p = cfg.polyat
     edge = p.window_search_for_polya

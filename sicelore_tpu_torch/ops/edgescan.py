@@ -21,8 +21,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sicelore_tpu.utils import dna
-from sicelore_tpu.utils.config import PipelineConfig
+from sicelore_tpu_torch.utils import dna
+from sicelore_tpu_torch.utils.config import PipelineConfig
 from sicelore_tpu_torch.ops import editdist, scan
 
 E = 304          # bases per half (>= polyA window 150 + adapter window 110)
@@ -54,7 +54,7 @@ def _chem(cfg: PipelineConfig):
 def patterns_from_cfg(cfg: PipelineConfig):
     """(peq_ad, peq_adc, peq_tso), each uint32 [4, 1] — the adapter,
     complete-adapter and TSO pattern bitmasks of the configured chemistry,
-    exactly as `sicelore_tpu.models.readscan.ReadScanModel` builds them."""
+    exactly as `sicelore_tpu/models/readscan.py::ReadScanModel` builds them."""
     _, a, t = _chem(cfg)
     return tuple(editdist.build_peq(dna.encode(s)[None, :])
                  for s in (a.sequence, a.sequence_complete, t.sequence))
@@ -352,7 +352,7 @@ def compute_qvs2_np(qv2: np.ndarray, true_lens: np.ndarray, out: dict,
     def window_mean(s_str, e_str):
         s = np.where(is_fwd, s_str, lens - 1 - e_str).astype(np.int64)
         e = np.where(is_fwd, e_str, lens - 1 - s_str).astype(np.int64)
-        from sicelore_tpu.io import native as _native
+        from sicelore_tpu_torch.io import native as _native
         ext = _native.get_hostenc()
         if ext is not None and hasattr(ext, "window_qv_means"):
             buf = ext.window_qv_means(

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sicelore_tpu.utils import dna
+from sicelore_tpu_torch.utils import dna
 from sicelore_tpu_torch.ops import editdist
 
 NEG = -(10**9)

@@ -17,8 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sicelore_tpu.utils import dna
-from sicelore_tpu.utils.config import PipelineConfig
+from sicelore_tpu_torch.utils import dna
+from sicelore_tpu_torch.utils.config import PipelineConfig
 from sicelore_tpu_torch.ops import _build, editdist, scan
 
 TILE = 1024

@@ -31,10 +31,10 @@ from pathlib import Path
 
 import numpy as np
 
-from sicelore_tpu.io import fastq
-from sicelore_tpu.pipeline import readname
-from sicelore_tpu.utils import dna
-from sicelore_tpu.utils.config import DynamicEDTable, PipelineConfig
+from sicelore_tpu_torch.io import fastq
+from sicelore_tpu_torch.pipeline import readname
+from sicelore_tpu_torch.utils import dna
+from sicelore_tpu_torch.utils.config import DynamicEDTable, PipelineConfig
 from sicelore_tpu_torch.models import readscan
 from sicelore_tpu_torch.ops import editdist
 
@@ -498,7 +498,7 @@ class ScanFastqPipeline:
                       bc_ed2, bc_start, bc_end, passed, failed) -> bool:
         """Native batch emitter (hostenc.emit_records); False -> caller
         falls back to the Python loop."""
-        from sicelore_tpu.io import native as _native
+        from sicelore_tpu_torch.io import native as _native
         ext = _native.get_hostenc()
         if ext is None or not hasattr(ext, "emit_records"):
             return False
@@ -687,7 +687,7 @@ class ScanFastqPipeline:
 
     def write_report(self, path):
         """Knee plot + scan statistics HTML (reference ReadScanner.html)."""
-        from sicelore_tpu.report import html
+        from sicelore_tpu_torch.report import html
         assigned = sorted((int(h.sum()) for h in self.assigned_hist.values()),
                           reverse=True)
         sections = [("Knee plot", html.knee_plot(assigned))]

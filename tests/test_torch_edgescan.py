@@ -11,6 +11,14 @@ from sicelore_tpu.utils import synth
 from sicelore_tpu.utils.config import PipelineConfig
 from sicelore_tpu_torch.ops import edgescan as eg
 from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
+from sicelore_tpu_torch.utils.config import PipelineConfig as TorchConfig
+
+
+def _cfgs(chem: str = "3p"):
+    """One configuration for each side: (JAX package's, port's)."""
+    cfg, tcfg = PipelineConfig(), TorchConfig()
+    cfg.chemistry = tcfg.chemistry = chem
+    return cfg, tcfg
 
 
 def _partial_tso(rng, cfg):
@@ -64,14 +72,13 @@ def _jax_meta(cfg, head, tail, lens):
 @pytest.mark.parametrize("chem", ["3p", "5p"])
 def test_plain_edge_body_matches_jnp(chem):
     rng = np.random.default_rng(21 if chem == "3p" else 22)
-    cfg = PipelineConfig()
-    cfg.chemistry = chem
+    cfg, tcfg = _cfgs(chem)
     seqs, quals = _reads(rng, chem)
     head, tail, _, lens, _ = jax_eg.encode_two_half_int8(seqs, quals)
     ref = _jax_meta(cfg, head, tail, lens)
 
     codes, qv2, true_lens, qsum = eg.encode_two_half(seqs, quals)
-    p = eg.edge_params(cfg)
+    p = eg.edge_params(tcfg)
     got = edge_scan2(torch.from_numpy(codes).t().contiguous(),
                      torch.from_numpy(true_lens), p).numpy()
     assert got.dtype == np.int32 and got.shape == ref.shape
@@ -82,7 +89,7 @@ def test_plain_edge_body_matches_jnp(chem):
     assert ref[eg.ROW_STRANDED].mean() > 0.6
 
     ref_out = jax_eg.finalize_meta_np(ref, lens, cfg)
-    out = eg.finalize_meta_np(got, true_lens, cfg)
+    out = eg.finalize_meta_np(got, true_lens, tcfg)
     jax_eg.compute_qvs2_np(*jax_eg.encode_two_half_int8(seqs, quals)[2:4],
                            ref_out, 16, chem == "5p")
     eg.compute_qvs2_np(qv2, true_lens, out, 16, chem == "5p", qsum)
@@ -95,7 +102,7 @@ def test_plain_body_counts_and_tso_bailout():
     """The wrapper takes the plain body for CPU tensors (and counts it);
     the partial-TSO read reports T= through the bailout."""
     rng = np.random.default_rng(5)
-    cfg = PipelineConfig()
+    cfg = TorchConfig()
     seq = _partial_tso(rng, cfg)
     codes, _, lens, _ = eg.encode_two_half([seq], [b"I" * len(seq)])
     before = eg.edge_scan2_plain.launches
@@ -141,15 +148,14 @@ def test_patterns_and_used_list_peq_match_jax_model():
     pats, _ = dna.encode_batch(
         [w.encode() for w in synth.make_whitelist(rng, 300)], 16)
     for chem in ("3p", "5p"):
-        cfg = PipelineConfig()
-        cfg.chemistry = chem
+        cfg, tcfg = _cfgs(chem)
         model = jax_readscan.ReadScanModel(cfg)
-        for mine, ref in zip(eg.patterns_from_cfg(cfg),
+        for mine, ref in zip(eg.patterns_from_cfg(tcfg),
                              (model.peq_ad, model.peq_adc, model.peq_tso)):
             assert mine.dtype == np.uint32
             np.testing.assert_array_equal(mine, np.asarray(ref))
     model.prepare_search(pats, 300)
-    port = ReadScanModel(cfg, device="cpu")
+    port = ReadScanModel(tcfg, device="cpu")
     port.prepare_search(pats, 300)
     np.testing.assert_array_equal(port._peq_raw, model._peq_raw)
     ref_bc = np.asarray(model._peq_bc)            # padded to 1024 columns
@@ -161,7 +167,7 @@ def test_patterns_and_used_list_peq_match_jax_model():
 
 
 def test_kernel_envelope_rejects_5p_on_cuda_only():
-    cfg = PipelineConfig()
+    cfg = TorchConfig()
     assert eg.edge_params(cfg).kernel_unsupported == ""
     cfg.chemistry = "5p"
     assert "5p" in eg.edge_params(cfg).kernel_unsupported

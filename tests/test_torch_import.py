@@ -1,6 +1,7 @@
 """The port imports without jax, reports its toolchain, and refuses a CUDA
 device it does not have."""
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -12,19 +13,52 @@ REPO = Path(__file__).resolve().parents[1]
 ENV = dict(os.environ, PYTHONPATH=str(REPO))
 
 
+_NO_FOREIGN = (
+    "bad = sorted(k for k in sys.modules if k == 'jax' or "
+    "k.startswith('jax.') or k == 'sicelore_tpu' or "
+    "k.startswith('sicelore_tpu.'))\n"
+    "assert not bad, bad\n")
+
+
 def test_port_never_imports_jax():
+    """Every module of the port, imported in a fresh process, leaves neither
+    jax nor any module of the JAX package in sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import sicelore_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'sicelore_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        + _NO_FOREIGN +
         "print(len(mods))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=REPO, env=ENV)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 10
+    assert int(r.stdout.strip()) >= 30
+
+
+def test_chip_smoke_never_imports_jax_package():
+    """chip_smoke.py imports inside its functions, so besides importing it
+    as a module (calling nothing) its source is searched."""
+    code = ("import importlib, sys\n"
+            "importlib.import_module('chip_smoke')\n" + _NO_FOREIGN)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=REPO, env=ENV)
+    assert r.returncode == 0, r.stderr
+    src = (REPO / "chip_smoke.py").read_text()
+    hits = re.findall(
+        r"sicelore_tpu\.|from sicelore_tpu |import sicelore_tpu\b|"
+        r"\bimport jax\b|\bfrom jax\b", src)
+    assert not hits, hits
+
+
+def test_port_sources_name_no_jax_package_module():
+    """No source file of the port spells an import of the JAX package."""
+    for f in sorted((REPO / "sicelore_tpu_torch").rglob("*.py")):
+        hits = re.findall(
+            r"sicelore_tpu\.|from sicelore_tpu |import sicelore_tpu\b",
+            f.read_text())
+        assert not hits, (f.name, hits)
 
 
 def test_env_command():

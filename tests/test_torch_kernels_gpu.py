@@ -7,13 +7,14 @@ import numpy as np
 import pytest
 import torch
 
-from sicelore_tpu.utils import dna, synth
-from sicelore_tpu.utils.config import PipelineConfig
 from sicelore_tpu_torch.models import readscan
 from sicelore_tpu_torch.ops import bcsearch, editdist
 from sicelore_tpu_torch.ops import edgescan as eg
+from sicelore_tpu_torch.ops import poa_cuda as pc
 from sicelore_tpu_torch.ops import tilescan_cuda as ts
 from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
+from sicelore_tpu_torch.utils import dna, synth
+from sicelore_tpu_torch.utils.config import PipelineConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -100,3 +101,54 @@ def test_tile_kernel_matches_plain(dev, reads):
     pl = ts.tile_scan_plain(rd, ts.tile_params(cfg))
     torch.cuda.synchronize()
     assert torch.equal(k, pl) and int((k[0] > 0).sum()) > 0
+
+
+def _pairs(seed, n_mol, length, rate, Lc, W, dev):
+    """Pair tensors on the card: noisy molecules plus an infeasible pair,
+    insertion runs past K_INS, a read with N and an empty read."""
+    rng = np.random.default_rng(seed)
+    mols, _ = synth.molecule_set(rng, n_mol, 5, rate, length)
+    truth = synth.random_seq(rng, length)
+    ins = truth[:60] + synth.random_seq(rng, 9) + truth[60:]
+    mols.append([ins.encode(), truth.encode(), truth[:length - 40].encode(),
+                 (truth[:90] + "N" + truth[91:]).encode(), b"",
+                 synth.mutate(rng, truth, rate).encode()])
+    center, clens, reads, rlens, mids = synth.pair_arrays(mols, Lc, W)
+    first = np.searchsorted(mids, np.arange(len(mols)))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (t(reads), t(rlens), t(mids), t(center[first]), t(clens[first]),
+            Lc, W)
+
+
+@pytest.mark.parametrize("length,Lc,W", [
+    (230, 256, 32), (256, 256, 32), (500, 512, 32), (500, 512, 64),
+    (900, 1024, 64), (2000, 2048, 64)])
+def test_band_kernel_matches_plain(dev, length, Lc, W):
+    args = _pairs(length, 6, length - 12, 0.06, Lc, W, dev)
+    before = pc.band_align.launches
+    k = pc.band_align(*args)
+    assert pc.band_align.launches == before + 1
+    pl = pc.band_align_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, what in zip(k, pl, ("aligned", "ins", "feasible")):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        assert torch.equal(a, b), (what, int((a != b).sum()))
+    assert int(k[2].sum()) >= k[2].numel() - 3 and int(k[1].max()) >= 1
+
+
+def test_band_kernel_refuses_other_bands(dev):
+    args = _pairs(1, 2, 200, 0.05, 256, 48, dev)
+    with pytest.raises(NotImplementedError, match="W in"):
+        pc.band_align(*args)
+
+
+def test_consensus_engine_cuda_matches_cpu(dev):
+    rng = np.random.default_rng(77)
+    mols = []
+    for L in (180, 300, 450, 700, 1100):
+        m, _ = synth.molecule_set(rng, 3, 5, 0.05, L)
+        mols += m
+    mols.append([b"ACGTACGTAA"])
+    got = pc.BatchedConsensusEngine(device="cuda")(mols, refine=True)
+    ref = pc.BatchedConsensusEngine(device="cpu")(mols, refine=True)
+    assert got == ref

@@ -15,6 +15,7 @@ import pytest
 from sicelore_tpu.pipeline.scanfastq import ScanFastqPipeline as JaxPipeline
 from sicelore_tpu.utils import synth
 from sicelore_tpu.utils.config import PipelineConfig
+from sicelore_tpu_torch.utils.config import PipelineConfig as TorchConfig
 from sicelore_tpu_torch.pipeline.scanfastq import ScanFastqPipeline
 
 REPO = Path(__file__).resolve().parents[1]
@@ -118,7 +119,7 @@ def test_scanfastq_byte_identical_to_jax(run_dir, tmp_path, mode):
     ref = JaxPipeline(PipelineConfig(), whitelist=whitelist, chunk_size=200,
                       **kw)
     ref_stats = ref.run([d], tmp_path / "jax")
-    port = ScanFastqPipeline(PipelineConfig(), whitelist=whitelist,
+    port = ScanFastqPipeline(TorchConfig(), whitelist=whitelist,
                              chunk_size=200, device="cpu", **kw)
     stats = port.run([d], tmp_path / "torch")
     assert _same_outputs(tmp_path / "jax", tmp_path / "torch", mode)
@@ -136,7 +137,7 @@ def test_reads_with_n_byte_identical_to_jax(n_dir, tmp_path):
                 cache_pass1=False).run([d], tmp_path / "jax")
     for cached in (False, True):
         out = tmp_path / f"torch{int(cached)}"
-        stats = ScanFastqPipeline(PipelineConfig(), whitelist=wl,
+        stats = ScanFastqPipeline(TorchConfig(), whitelist=wl,
                                   chunk_size=64, user_max_ed=2,
                                   cache_pass1=cached, device="cpu").run(
             [d], out)
@@ -154,8 +155,9 @@ def test_demon_mode_byte_identical_to_jax(tmp_path):
                         error_rate=0.03, reverse=bool(i % 2))
         for i in range(n))] for off, n in ((0, 40), (100, 25))]
     outs = {}
-    for name, cls, kw in (("jax", JaxPipeline, {}),
-                          ("torch", ScanFastqPipeline, {"device": "cpu"})):
+    for name, cls, cfg_cls, kw in (
+            ("jax", JaxPipeline, PipelineConfig, {}),
+            ("torch", ScanFastqPipeline, TorchConfig, {"device": "cpu"})):
         d = tmp_path / f"run_{name}"
         d.mkdir()
         _write_fastq(d / "a.fastq.gz", recs[0])
@@ -163,7 +165,7 @@ def test_demon_mode_byte_identical_to_jax(tmp_path):
         dropper = threading.Timer(      # appears whole, mid-poll
             0.8, os.replace, (tmp_path / f"b_{name}.part", d / "b.fastq.gz"))
         dropper.start()
-        stats = cls(PipelineConfig(), whitelist=wl, user_max_ed=1,
+        stats = cls(cfg_cls(), whitelist=wl, user_max_ed=1,
                     chunk_size=32, **kw).run_demon(
             [d], tmp_path / f"out_{name}", poll_interval=0.4,
             idle_timeout=2.5, log=lambda *a: None)
@@ -175,7 +177,7 @@ def test_demon_mode_byte_identical_to_jax(tmp_path):
 
 def test_random_barcode_raises(run_dir, tmp_path):
     d, wl, _ = run_dir
-    pipe = ScanFastqPipeline(PipelineConfig(), whitelist=wl, chunk_size=200,
+    pipe = ScanFastqPipeline(TorchConfig(), whitelist=wl, chunk_size=200,
                              random_barcode=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipe.run([d], tmp_path / "neg")

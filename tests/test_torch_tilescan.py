@@ -7,6 +7,7 @@ import torch
 from sicelore_tpu.models import readscan as jax_readscan
 from sicelore_tpu.utils import synth
 from sicelore_tpu.utils.config import PipelineConfig
+from sicelore_tpu_torch.utils.config import PipelineConfig as TorchConfig
 from sicelore_tpu_torch.models import readscan
 from sicelore_tpu_torch.ops import tilescan_cuda as ts
 
@@ -44,7 +45,7 @@ def test_plain_tile_scan_matches_jnp_inner():
     rng = np.random.default_rng(17)
     cfg = PipelineConfig()
     seqs = _long_reads(rng)
-    rows, read_idx, g0s = readscan.build_tiles(seqs, cfg)
+    rows, read_idx, g0s = readscan.build_tiles(seqs, TorchConfig())
     rows_j, ri_j, g0_j = jax_readscan.build_tiles(seqs, cfg)
     np.testing.assert_array_equal(rows, rows_j)
     np.testing.assert_array_equal(read_idx, ri_j)
@@ -54,7 +55,8 @@ def test_plain_tile_scan_matches_jnp_inner():
     model = jax_readscan.ReadScanModel(cfg)
     inner = jax_readscan._make_internal_tile_inner(cfg)
     ref = np.asarray(inner(jnp.asarray(rows), model.peq_adc)).astype(np.int32)
-    got = ts.tile_scan(torch.tensor(rows), ts.tile_params(cfg)).numpy()
+    got = ts.tile_scan(torch.tensor(rows),
+                       ts.tile_params(TorchConfig())).numpy()
     assert got.dtype == np.int32 and got.shape == ref.shape
     np.testing.assert_array_equal(got, ref)
     assert (got[0] == 1).sum() >= 10 and (got[0] >= 2).any()
@@ -68,7 +70,7 @@ def test_tile_splits_through_model_match_jax():
     seqs = _long_reads(rng)
     jm = jax_readscan.ReadScanModel(cfg)
     ref = jm.finish_internal_tiles(jm.internal_tiles_async(seqs))
-    m = readscan.ReadScanModel(cfg, device="cpu")
+    m = readscan.ReadScanModel(TorchConfig(), device="cpu")
     before = ts.tile_scan_plain.launches
     got = m.finish_internal_tiles(m.internal_tiles_async(seqs))
     assert got == ref
