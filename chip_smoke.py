@@ -38,7 +38,9 @@ Phases (one JSON line each, with its seconds):
   consensus_parity  the same consensus on a 2,048-molecule subset on `cuda`
             and on `cpu`: output fastq and stats byte-identical.
 
-Then: the {"kernels": [...]} line, the nvidia-smi line, and last
+Then: a short {"summary": ...} line (the end-to-end rates, the consensus
+split and the script's seconds), the {"kernels": [...]} line, the nvidia-smi
+line, and last
 {"ok": true, "device": {...}}. Any failure raises: no ok line, exit != 0.
 
 BOUNDS. `bound_ms` is the least time this card could take for a kernel's
@@ -46,17 +48,22 @@ work at this run's inputs: the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its int32 operations over
 132 SMs x 64 lanes x the card's maximum SM clock (nvidia-smi
 clocks.max.sm). Operation counts, from the kernels' own arithmetic:
-  Myers column (csrc/myers.cuh myers_step): 21.
+  Myers column (csrc/myers.cuh myers_step): 18, the count the JAX
+    package's bench.py uses for the same step (the step's 21 C operators
+    less the three NOTs, which fold into three-input logic operations).
   edgescan, a read: four Myers searches (3 x awin + twin columns), two
     32-row run recurrences (awin + twin columns x 32 rows x 3), the bailout
     pairs (twin x npairs x 4) and the two run scans (E + win_p + k columns
     x 6; the head scan stops after win_p windows when it finds no run).
-  bcsweep: reads x barcodes x window columns x 21.
+  bcsweep: reads x barcodes x window columns x 18.
   tilescan, a tile: two run scans over 1,024 columns x 6; the Myers
     confirms run only at the few sites found and are not counted.
-  bandalign: sum over pairs of clen x W band cells x 32 (cell index and
-    validity 4, substitution score 5, diagonal/vertical/max 3, gap closure
-    13, clamp 1, the two move tests 6); clen is this run's, not Lc.
+  bandalign: sum over pairs of clen x W band cells x 13, what the
+    recurrence needs of a cell whatever the kernel's design: substitution
+    compare and select 3, diagonal add 1, vertical add and max 2, gap
+    closure (a prefix maximum) 2, clamp 1, the two move tests 4. Lane
+    bookkeeping, shuffles and the traceback (1/W of the cells) are not
+    counted; clen is this run's, not Lc.
 No PyTorch call computes any of the four functions: `library_ms` is null.
 """
 from __future__ import annotations
@@ -80,6 +87,7 @@ SWEEP_LISTS = (8_192, 49_152)
 N_PARITY = 4_096
 TIMED_CALLS = 5
 SEED = 20_240_601
+T_START = time.time()
 BAND_PAIRS = 8_192
 BAND_SHAPES = ((512, 32, BAND_PAIRS, 300, 490),      # Lc, W, pairs, truth
                (1024, 64, BAND_PAIRS, 520, 900),     # lengths lo, hi
@@ -88,8 +96,8 @@ N_MOLECULES = 32_768
 N_CONS_PARITY = 2_048
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES = 132 * 64
-MYERS_OPS = 21
-BAND_CELL_OPS = 32
+MYERS_OPS = 18
+BAND_CELL_OPS = 13
 
 
 def emit(obj) -> None:
@@ -275,13 +283,14 @@ def read_fastq_records(path):
             for i in range(0, len(lines) - 1, 4)]
 
 
-def consensus_split(bam, out_fastq, engine) -> dict:
+def consensus_split(bam, out_fastq) -> dict:
     """compute_consensus once more with a timer around each stage (device
     stages end in a synchronize): seconds by stage."""
     import torch
 
     from sicelore_tpu_torch.ops import poa, poa_cuda
     from sicelore_tpu_torch.pipeline import consensus
+    engine = poa_cuda.BatchedConsensusEngine
     secs: dict[str, float] = {}
 
     def timed_fn(owner, attr, key, sync=False):
@@ -310,7 +319,7 @@ def consensus_split(bam, out_fastq, engine) -> dict:
     ]
     t = time.perf_counter()
     try:
-        consensus.compute_consensus(bam, out_fastq, engine=engine)
+        consensus.compute_consensus(bam, out_fastq, device="cuda")
     finally:
         for u in undo:
             u()
@@ -614,12 +623,11 @@ def _run(pool, wl, cells, work, dev) -> int:
     gen_s = time.time() - t0
     cons_counters = (poa_cuda.band_align, poa_cuda.band_align_plain,
                      poa_cuda.consensus_votes_plain)
-    engine = poa_cuda.BatchedConsensusEngine(device="cuda")
     for c in cons_counters:
         c.launches = 0
     t_run = time.time()
     cstats = compute_consensus(work / "cons.bam", work / "cons_cuda.fastq",
-                               engine=engine,
+                               device="cuda",
                                log_json=work / "cons_cuda.fastq.log")
     torch.cuda.synchronize()
     cons_s = time.time() - t_run
@@ -656,8 +664,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     # where the phase's time goes: the same run again with a timer (and a
     # device sync) around each stage
     t0 = time.time()
-    split = consensus_split(work / "cons.bam", work / "cons_split.fastq",
-                            engine)
+    split = consensus_split(work / "cons.bam", work / "cons_split.fastq")
     emit({"phase": "consensus_split", "seconds": split,
           "s": round(time.time() - t0, 2)})
     if (work / "cons_split.fastq").read_bytes() != \
@@ -670,8 +677,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     blobs = {}
     for d in ("cuda", "cpu"):
         out = work / f"cons_sub_{d}.fastq"
-        compute_consensus(work / "cons_sub.bam", out,
-                          engine=poa_cuda.BatchedConsensusEngine(device=d),
+        compute_consensus(work / "cons_sub.bam", out, device=d,
                           log_json=str(out) + ".log")
         blobs[d] = (out.read_bytes(), Path(str(out) + ".log").read_bytes())
     emit({"phase": "consensus_parity", "molecules": N_CONS_PARITY,
@@ -718,6 +724,13 @@ def _run(pool, wl, cells, work, dev) -> int:
                 entry["max_abs_err"] = max(entry["max_abs_err"],
                                            o["max_abs_err"])
         kernels.append(entry)
+    emit({"summary": {"scanfastq_reads_per_s": round(total / run_s, 1),
+                      "scanfastq_run_s": round(run_s, 3),
+                      "consensus_umis_per_s": round(N_MOLECULES / cons_s, 1),
+                      "consensus_run_s": round(cons_s, 3),
+                      "consensus_split_s": split,
+                      "build_s": _build.build_seconds,
+                      "script_s": round(time.time() - T_START, 1)}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -115,7 +115,7 @@ def _add_computeconsensus(sub):
 def cmd_computeconsensus(args) -> int:
     from sicelore_tpu_torch.pipeline.consensus import compute_consensus
 
-    engine = None
+    engine = "host"
     if not args.host_engine:
         # a device or kernel that fails raises: the host engine never
         # stands in unasked

@@ -518,7 +518,5 @@ class BatchedConsensusEngine:
             keep[bslots] = bb != 4
         code, win = code[keep], win[keep]
         out = _ACGT_NP[np.minimum(code, 3)].tobytes()
-        frac = win / R
-        q = np.rint(-10 * np.log10(np.maximum(1.0 - frac, 1e-9)))
-        q = np.where(frac >= 1.0, maxps, np.minimum(q, maxps))
-        return out, (q.astype(np.uint8) + 33).tobytes()
+        q = qv_table(maxps, R)[win, R]
+        return out, (q + 33).tobytes()

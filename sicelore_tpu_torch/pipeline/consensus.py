@@ -21,9 +21,13 @@ from sicelore_tpu_torch.ops import poa
 def compute_consensus(input_bam, output_fastq, maxreads: int = 20,
                       minps: int = 3, maxps: int = 20,
                       tags: TagConfig | None = None, engine=None,
-                      log_json=None):
-    """engine: callable(list_of_molecule_seq_lists) -> list[(cons, qv)];
-    defaults to the host poa engine molecule-by-molecule."""
+                      log_json=None, device="cuda"):
+    """engine: callable(list_of_molecule_seq_lists) -> list[(cons, qv)].
+    None builds the batched device engine on `device` (cuda without a GPU
+    raises); "host" asks for the host poa engine molecule-by-molecule."""
+    if engine is None:
+        from sicelore_tpu_torch.ops.poa_cuda import BatchedConsensusEngine
+        engine = BatchedConsensusEngine(maxreads=maxreads, device=device)
     parser = LongreadParser(input_bam, keep_mapqv0=False, load_sequence=True,
                             gene_mandatory=False, umi_mandatory=True,
                             tags=tags)
@@ -37,7 +41,7 @@ def compute_consensus(input_bam, output_fastq, maxreads: int = 20,
         seqs = [lr.best_record().cdna for lr in lrs[:maxreads]
                 if lr.best_record().cdna]
         jobs.append((label, seqs))
-    if engine is None:
+    if engine == "host":
         results = [poa.consensus_reads(seqs, minps, maxps)
                    for _, seqs in jobs]
     else:

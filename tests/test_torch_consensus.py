@@ -83,12 +83,35 @@ def test_compute_consensus_byte_identical_to_jax(tagged_bam, tmp_path,
 
 
 def test_host_engine_default_matches_jax(tagged_bam, tmp_path):
+    """The host engine runs only when asked for (engine="host"); the JAX
+    package's default is that engine."""
     bam, n_mol, _ = tagged_bam
     jax_consensus(bam, tmp_path / "jax.fastq", maxreads=3)
-    got = compute_consensus(bam, tmp_path / "torch.fastq", maxreads=3)
+    got = compute_consensus(bam, tmp_path / "torch.fastq", maxreads=3,
+                            engine="host")
     assert got["written"] == n_mol
     assert (tmp_path / "torch.fastq").read_bytes() == \
         (tmp_path / "jax.fastq").read_bytes()
+
+
+def test_default_engine_is_the_device_engine(tagged_bam, tmp_path):
+    """No engine given: the batched engine on `device`. On the CPU it is
+    byte-equal to an engine passed in; the default device is cuda, which
+    raises without a GPU instead of giving way to the host engine."""
+    import torch
+
+    bam, n_mol, _ = tagged_bam
+    before = poa_cuda.band_align_plain.launches
+    got = compute_consensus(bam, tmp_path / "dflt.fastq", device="cpu")
+    assert poa_cuda.band_align_plain.launches > before
+    assert got["written"] == n_mol
+    compute_consensus(bam, tmp_path / "eng.fastq",
+                      engine=poa_cuda.BatchedConsensusEngine(device="cpu"))
+    assert (tmp_path / "dflt.fastq").read_bytes() == \
+        (tmp_path / "eng.fastq").read_bytes()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            compute_consensus(bam, tmp_path / "none.fastq")
 
 
 def test_cli_computeconsensus_cpu(tagged_bam, tmp_path):
