@@ -11,10 +11,17 @@ Phases (one JSON line each, with its seconds):
             8,192 and 49,152 barcodes, the chimera scan over all tiles of
             the chunk; the band aligner over 8,192 pairs at (Lc = 512,
             W = 32), 8,192 at (Lc = 1,024, W = 64) and 256 at (Lc = 2,048,
-            W = 64). Tolerance: exact (integer outputs; mismatches must be
-            0). Median ms of each over >= 5 timed calls (CUDA events), each
-            call on freshly mutated content. Beside each time stands the
-            kernel's bound on this card (see BOUNDS below).
+            W = 64); the window search over the 5p adapter windows of two
+            chunk halves [65,536, 110], the complete-adapter windows
+            [32,768, 110], the 5p TSO windows [32,768, twin] and six confirm
+            windows a tile [6 x tiles, 160], plus B = 1 and B = 37 with an
+            all-PAD row. Tolerance: exact (integer outputs; mismatches must
+            be 0). Median ms of each over >= 5 timed calls (CUDA events),
+            each call on freshly mutated content. Beside each time stands
+            the kernel's bound on this card (see BOUNDS below). The composed
+            5p edge body (torch ops + three window searches) is timed at
+            32,768 reads beside the fused 3p kernel, with a sync-timed split
+            of one call by scan op.
   pipeline  `ScanFastqPipeline.run` on `cuda` over a synthetic run of
             131,072 reads in 4 fastq files (8,192 cells drawn from a
             65,536-barcode whitelist; 4% error, ~6% 2-8 kb reads, ~2%
@@ -25,6 +32,27 @@ Phases (one JSON line each, with its seconds):
   parity    the same pipeline on a 4,096-read subset on `cuda` and on `cpu`
             (plain bodies): every output file byte-identical, and assigned
             barcodes agreeing with the generator's truth.
+  pipeline_5p  the same run with `PipelineConfig(chemistry="5p")` over
+            131,072 synthetic 5p reads (`synth.make_read_5p`, the same mix):
+            the edge scan takes the composed body, so the window-search
+            kernel, the composed body, the sweep and the tile scan must have
+            launched, the fused edge kernel and every plain version not.
+            Then the CUDA-vs-CPU byte parity on a 4,096-read subset.
+  v1_control  the random-barcode negative control (`random_barcode=True`,
+            fixed seed, max ED 1) over one 3p file of 32,768 reads on `cuda`:
+            the synchronous pass 2 (`pass2_chunk`: `split_chimeras`, the v1
+            composite scan `scan_reads`, `bc_search`). The falsely assigned
+            share of the stranded reads must be under 5%; CUDA == CPU bytes
+            on a 4,096-read subset with the same seed.
+  scanfastq_split  the 3p, 5p and control runs once more, each with a timer
+            (and a device sync) around every stage: seconds by stage.
+  empty_used_list  a whitelist that shares no barcode with the reads, on
+            `cuda` and `cpu`: pass 1 finds nothing, pass 2 is `pass2_chunk`,
+            nothing is assigned, the bytes agree.
+  prefilter  the q-gram prefilter search
+            (`prepare_search(mode="prefilter")` + fused scan/search) against
+            the brute sweep mode on the card: equal ed and idx wherever the
+            sweep's best ED lies within the radius, not-found beyond it.
   consensus `compute_consensus` on `cuda` over a synthetic tagged BAM of
             32,768 molecules (50% one read, 20% two, 30% 3-12 reads;
             400-900 nt cDNA at 3% error; ~1% of the multi-read molecules
@@ -58,13 +86,14 @@ clocks.max.sm). Operation counts, from the kernels' own arithmetic:
   bcsweep: reads x barcodes x window columns x 18.
   tilescan, a tile: two run scans over 1,024 columns x 6; the Myers
     confirms run only at the few sites found and are not counted.
+  win1: windows x columns x 18.
   bandalign: sum over pairs of clen x W band cells x 13, what the
     recurrence needs of a cell whatever the kernel's design: substitution
     compare and select 3, diagonal add 1, vertical add and max 2, gap
     closure (a prefix maximum) 2, clamp 1, the two move tests 4. Lane
     bookkeeping, shuffles and the traceback (1/W of the cells) are not
     counted; clen is this run's, not Lc.
-No PyTorch call computes any of the four functions: `library_ms` is null.
+No PyTorch call computes any of the five functions: `library_ms` is null.
 """
 from __future__ import annotations
 
@@ -92,6 +121,9 @@ BAND_PAIRS = 8_192
 BAND_SHAPES = ((512, 32, BAND_PAIRS, 300, 490),      # Lc, W, pairs, truth
                (1024, 64, BAND_PAIRS, 520, 900),     # lengths lo, hi
                (2048, 64, 256, 1100, 1900))
+CONTROL_SEED = 7
+CONTROL_MAX_ED = 1
+PREFILTER_RADIUS = 2
 N_MOLECULES = 32_768
 N_CONS_PARITY = 2_048
 HBM_BYTES_PER_S = 3.35e12
@@ -106,12 +138,20 @@ def emit(obj) -> None:
 
 def make_file(args) -> int:
     """Write one synthetic fastq file (worker process). Read names carry
-    the truth: r<i>c<cell index>, x<i> chimera, g<i> garbage."""
-    path, seed, cells = args
+    the truth: r<i>c<cell index>, x<i> chimera, g<i> garbage. chem "5p"
+    makes 5' reads; its chimeras are two 5' reads joined end to end."""
+    path, seed, cells, chem = args
     import numpy as np
 
     from sicelore_tpu_torch.utils import synth
     rng = np.random.default_rng(seed)
+    make_read = synth.make_read_5p if chem == "5p" else synth.make_read
+
+    def make_chimera(bc1, bc2, **kw):
+        if chem != "5p":
+            return synth.make_chimera(rng, bc1, bc2, **kw)
+        a, b = make_read(rng, bc1, **kw), make_read(rng, bc2, **kw)
+        return {"seq": a["seq"] + b["seq"], "qual": a["qual"] + b["qual"]}
     with open(path, "wb") as fh:
         for i in range(READS_PER_FILE):
             u = rng.random()
@@ -119,13 +159,13 @@ def make_file(args) -> int:
             rev = bool(rng.random() < 0.5)
             if u < 0.06:
                 name = f"r{i}c{ci}"
-                r = synth.make_read(rng, cells[ci],
-                                    cdna_len=int(rng.integers(2000, 8000)),
-                                    error_rate=0.04, reverse=rev)
+                r = make_read(rng, cells[ci],
+                              cdna_len=int(rng.integers(2000, 8000)),
+                              error_rate=0.04, reverse=rev)
             elif u < 0.08:
                 name = f"x{i}"
-                r = synth.make_chimera(
-                    rng, cells[ci], cells[int(rng.integers(0, len(cells)))],
+                r = make_chimera(
+                    cells[ci], cells[int(rng.integers(0, len(cells)))],
                     cdna_len=int(rng.integers(300, 700)), error_rate=0.04)
             elif u < 0.10:
                 name = f"g{i}"
@@ -135,9 +175,9 @@ def make_file(args) -> int:
                                    for x in rng.integers(2, 30, L))}
             else:
                 name = f"r{i}c{ci}"
-                r = synth.make_read(rng, cells[ci],
-                                    cdna_len=int(rng.integers(300, 700)),
-                                    error_rate=0.04, reverse=rev)
+                r = make_read(rng, cells[ci],
+                              cdna_len=int(rng.integers(300, 700)),
+                              error_rate=0.04, reverse=rev)
             seq = bytearray(r["seq"])
             if rng.random() < 0.01 and len(seq) > 0:
                 for _ in range(int(rng.integers(1, 4))):
@@ -283,39 +323,42 @@ def read_fastq_records(path):
             for i in range(0, len(lines) - 1, 4)]
 
 
+def timed_fn(secs, owner, attr, key, sync=False):
+    """Replace owner.attr by a wrapper that adds its seconds to secs[key]
+    (after a device sync when `sync`); returns the undo function."""
+    import torch
+    fn = getattr(owner, attr)
+
+    def wrapper(*a, **kw):
+        if sync:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        secs[key] = secs.get(key, 0.0) + time.perf_counter() - t
+        return out
+    wrapper.launches = getattr(fn, "launches", 0)
+    setattr(owner, attr, wrapper)
+    return lambda: setattr(owner, attr, fn)
+
+
 def consensus_split(bam, out_fastq) -> dict:
     """compute_consensus once more with a timer around each stage (device
     stages end in a synchronize): seconds by stage."""
-    import torch
-
     from sicelore_tpu_torch.ops import poa, poa_cuda
     from sicelore_tpu_torch.pipeline import consensus
     engine = poa_cuda.BatchedConsensusEngine
     secs: dict[str, float] = {}
-
-    def timed_fn(owner, attr, key, sync=False):
-        fn = getattr(owner, attr)
-
-        def wrapper(*a, **kw):
-            t = time.perf_counter()
-            out = fn(*a, **kw)
-            if sync:
-                torch.cuda.synchronize()
-            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t
-            return out
-        wrapper.launches = getattr(fn, "launches", 0)
-        setattr(owner, attr, wrapper)
-        return lambda: setattr(owner, attr, fn)
-
     undo = [
-        timed_fn(consensus, "LongreadParser", "bam_parse"),
-        timed_fn(consensus, "MoleculeDataset", "molecule_grouping"),
-        timed_fn(poa, "consensus_reads", "host_engine"),
-        timed_fn(engine, "_build_bucket", "bucket_build"),
-        timed_fn(engine, "_run_batch", "batches_total", sync=True),
-        timed_fn(poa_cuda, "band_align", "kernel", sync=True),
-        timed_fn(poa_cuda, "segment_votes", "votes", sync=True),
-        timed_fn(poa_cuda, "assemble_votes", "assembly", sync=True),
+        timed_fn(secs, consensus, "LongreadParser", "bam_parse"),
+        timed_fn(secs, consensus, "MoleculeDataset", "molecule_grouping"),
+        timed_fn(secs, poa, "consensus_reads", "host_engine"),
+        timed_fn(secs, engine, "_build_bucket", "bucket_build"),
+        timed_fn(secs, engine, "_run_batch", "batches_total", sync=True),
+        timed_fn(secs, poa_cuda, "band_align", "kernel", sync=True),
+        timed_fn(secs, poa_cuda, "segment_votes", "votes", sync=True),
+        timed_fn(secs, poa_cuda, "assemble_votes", "assembly", sync=True),
     ]
     t = time.perf_counter()
     try:
@@ -334,6 +377,155 @@ def consensus_split(bam, out_fastq) -> dict:
     return {k: round(v, 3) for k, v in secs.items()}
 
 
+def composed_split(codes_tm, lens_d, ep) -> dict:
+    """One call of the composed edge body with a sync-timed wrapper around
+    each scan op: milliseconds by op, and of the whole call."""
+    import torch
+
+    from sicelore_tpu_torch.models import readscan
+    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import scan
+    from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
+    secs: dict[str, float] = {}
+    undo = [timed_fn(secs, scan, "polyat_find", "polyat_find", sync=True),
+            timed_fn(secs, readscan, "gather_window", "gather_window",
+                     sync=True),
+            timed_fn(secs, scan, "adapter_search", "adapter_search",
+                     sync=True),
+            timed_fn(secs, scan, "match_run_stats", "match_run_stats",
+                     sync=True),
+            timed_fn(secs, scan, "run_bailout", "run_bailout", sync=True)]
+    n = eg.edge_scan2_composed.launches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        edge_scan2(codes_tm, lens_d, ep)
+        torch.cuda.synchronize()
+    finally:
+        for u in undo:
+            u()
+    secs["total"] = time.perf_counter() - t
+    if eg.edge_scan2_composed.launches != n + 1:
+        raise SystemExit("composed_split did not run the composed body")
+    secs["rest"] = secs["total"] - sum(v for k, v in secs.items()
+                                       if k != "total")
+    return {k: round(v * 1e3, 3) for k, v in secs.items()}
+
+
+def scanfastq_split(pipe, inputs, out_dir) -> dict:
+    """pipe.run with a timer around each stage (device stages end in a
+    synchronize, so nothing overlaps): seconds by stage. `v1_call` is
+    ReadScanModel.__call__ (upload, the v1 body, download) and contains
+    `qvs_v1`; `other` is the fastq parse, the writers and what is left."""
+    import torch
+
+    from sicelore_tpu_torch.models import readscan
+    from sicelore_tpu_torch.ops import bcsearch
+    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.pipeline import scanfastq as sf
+    secs: dict[str, float] = {}
+    pl = sf.ScanFastqPipeline
+    undo = [
+        timed_fn(secs, eg, "encode_two_half", "encode_two_half"),
+        timed_fn(secs, readscan, "encode_composite", "encode_composite"),
+        timed_fn(secs, readscan, "build_tiles", "build_tiles"),
+        timed_fn(secs, readscan, "edge_scan2", "edge_scan", sync=True),
+        timed_fn(secs, readscan, "tile_scan", "tile_scan", sync=True),
+        timed_fn(secs, bcsearch, "bc_sweep", "bc_sweep", sync=True),
+        timed_fn(secs, readscan.ReadScanModel, "__call__", "v1_call",
+                 sync=True),
+        timed_fn(secs, readscan, "compute_qvs_np", "qvs_v1"),
+        timed_fn(secs, eg, "compute_qvs2_np", "qvs_v2"),
+        timed_fn(secs, readscan, "finalize_rows_np", "finalize_rows"),
+        timed_fn(secs, pl, "_pass1_apply", "pass1_count"),
+        timed_fn(secs, pl, "build_used_list", "build_used_list"),
+        timed_fn(secs, pl, "_split_parts_chunk", "split_parts"),
+        timed_fn(secs, pl, "pass2_emit", "emit"),
+        timed_fn(secs, pl, "_write_reports", "reports"),
+    ]
+    t = time.perf_counter()
+    try:
+        stats = pipe.run(inputs, out_dir)
+        torch.cuda.synchronize()
+    finally:
+        for u in undo:
+            u()
+    secs["total"] = time.perf_counter() - t
+    secs["other"] = secs["total"] - sum(
+        v for k, v in secs.items() if k not in ("total", "qvs_v1"))
+    return {"stats": stats.to_json(),
+            "seconds": {k: round(v, 3) for k, v in secs.items()}}
+
+
+def kernel_device_ms(fn, variants, kernel_name):
+    """Mean device milliseconds of the CUDA kernel whose name contains
+    `kernel_name` over fn(v) for each variant, from torch.profiler's trace
+    (no host time in it); None when the trace shows no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for v in variants:
+            fn(v)
+        torch.cuda.synchronize()
+    us = n = 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total",
+                    getattr(ev, "cuda_time_total", 0))
+        if kernel_name in ev.key and t:
+            us, n = us + t, n + ev.count
+    return us / n / 1e3 if n else None
+
+
+def write_subset(src, dst, n):
+    """The first n reads of fastq file src as dst; returns the chunk."""
+    from sicelore_tpu_torch.io import fastq
+    head = next(fastq.read_fastq(src, n))
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    with open(dst, "wb") as fh:
+        for nm, sq, q in zip(head.names, head.seqs, head.quals):
+            fh.write(b"@%s\n%s\n+\n%s\n" % (nm, sq, q))
+    return head
+
+
+def cuda_cpu_outputs(make_pipe, inputs, work, tag):
+    """Run make_pipe(device) over inputs on `cuda` and on `cpu`; every
+    output file but the HTML report must be byte-identical. Returns (number
+    of files, the cuda pipeline, the cuda output directory)."""
+    blobs, pipes = {}, {}
+    for d in ("cuda", "cpu"):
+        out = work / f"{tag}_{d}"
+        pipes[d] = make_pipe(d)
+        pipes[d].run(inputs, out)
+        blobs[d] = {str(f.relative_to(out)): f.read_bytes()
+                    for f in sorted(out.rglob("*")) if f.is_file()
+                    and f.name != "ReadScanner.html"}
+    diff = sorted(k for k in set(blobs["cuda"]) | set(blobs["cpu"])
+                  if blobs["cuda"].get(k) != blobs["cpu"].get(k))
+    if diff or not blobs["cuda"]:
+        raise SystemExit(f"{tag}: cuda/cpu outputs differ: {diff}")
+    return len(blobs["cuda"]), pipes["cuda"], work / f"{tag}_cuda"
+
+
+def bc_truth(passed_dir, cells):
+    """(agreeing, checked) assigned barcodes of unsplit r<i>c<cell> reads
+    against the generator's truth."""
+    from sicelore_tpu_torch.io import fastq
+    from sicelore_tpu_torch.pipeline import readname
+    n_ok = n_tot = 0
+    for f in sorted(passed_dir.iterdir()):
+        for ch in fastq.read_fastq(f):
+            for nm in ch.names:
+                info = readname.parse_name(nm)
+                if info is None:
+                    raise SystemExit(f"unparsable passed name {nm!r}")
+                o = info.orig_name
+                if o.startswith("r") and "c" in o and "sp" not in o:
+                    n_tot += 1
+                    n_ok += info.bc == cells[int(o.split("c")[1])]
+    return n_ok, n_tot
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -343,19 +535,20 @@ def main() -> int:
 
     from sicelore_tpu_torch.utils import synth
 
-    # synthetic inputs and outputs (~0.5 GB): inside the checkout, removed
+    # synthetic inputs and outputs (~1 GB): inside the checkout, removed
     # at the end
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     (work / "run").mkdir(parents=True)
+    (work / "run5p").mkdir()
     dev = torch.device("cuda")
 
-    # ---- env (+ data generation in 4 worker processes meanwhile) ----
+    # ---- env (+ data generation in worker processes meanwhile) ----
     rng = np.random.default_rng(SEED)
     wl = synth.make_whitelist(rng, N_WHITELIST)
     cells = [wl[i] for i in sorted(rng.choice(N_WHITELIST, N_CELLS,
                                               replace=False).tolist())]
-    pool = mp.get_context("spawn").Pool(N_FILES)
+    pool = mp.get_context("spawn").Pool(2 * N_FILES)
     try:
         return _run(pool, wl, cells, work, dev)
     finally:
@@ -369,8 +562,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     import torch
 
     from sicelore_tpu_torch.io import fastq, native
-    from sicelore_tpu_torch.pipeline import readname
-    from sicelore_tpu_torch.utils import dna
+    from sicelore_tpu_torch.utils import dna, synth
     from sicelore_tpu_torch.utils.config import PipelineConfig
     from sicelore_tpu_torch.models import readscan
     from sicelore_tpu_torch.ops import _build, bcsearch, editdist
@@ -383,7 +575,8 @@ def _run(pool, wl, cells, work, dev) -> int:
 
     t0 = time.time()
     gen = pool.map_async(make_file, [
-        (str(work / "run" / f"reads{i}.fastq"), SEED + 1 + i, cells)
+        (str(work / run / f"reads{i}.fastq"), SEED + off + i, cells, chem)
+        for run, off, chem in (("run", 1, "3p"), ("run5p", 301, "5p"))
         for i in range(N_FILES)])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -398,7 +591,7 @@ def _run(pool, wl, cells, work, dev) -> int:
                               text=True, timeout=60).stdout.strip(
                               ).splitlines()[-1] if nvcc else None
     _build.build_all()
-    for stem in ("edgescan", "bcsweep", "tilescan", "bandalign"):
+    for stem in ("edgescan", "bcsweep", "tilescan", "bandalign", "win1"):
         _build.load(stem)
     emit({"phase": "env", "nvidia_smi": smi, "max_sm_mhz": sm_hz / 1e6,
           "torch": torch.__version__,
@@ -409,8 +602,8 @@ def _run(pool, wl, cells, work, dev) -> int:
 
     t0 = time.time()
     gen.get(timeout=900)
-    emit({"phase": "data", "reads": N_FILES * READS_PER_FILE,
-          "files": N_FILES, "whitelist": N_WHITELIST, "cells": N_CELLS,
+    emit({"phase": "data", "reads": 2 * N_FILES * READS_PER_FILE,
+          "files": 2 * N_FILES, "whitelist": N_WHITELIST, "cells": N_CELLS,
           "s": round(time.time() - t0, 2)})
 
     # ---- kernels vs plain at the main path's shapes ----
@@ -499,7 +692,80 @@ def _run(pool, wl, cells, work, dev) -> int:
     n_tiles = int(rows.shape[0])
     results["tilescan"].update(bound(
         nbytes(rows_d) + 3 * n_tiles * 4, n_tiles * 2 * ts.TILE * 6, sm_hz))
-    del variants, wvars, rows_d, meta, wins, codes_tm
+
+    # the window search at the shapes its paths give it: the 5p composed
+    # edge body's three searches over one chunk, the confirm windows of
+    # the chunk's tiles
+    cfg5 = PipelineConfig(chemistry="5p")
+    ep5 = eg.edge_params(cfg5)
+    chunk5 = next(fastq.read_fastq(work / "run5p" / "reads0.fastq",
+                                   READS_PER_FILE))
+    codes5, _, lens5, _ = eg.encode_two_half(chunk5.seqs, chunk5.quals)
+    codes5_tm = torch.from_numpy(codes5).to(dev).t().contiguous()
+    lens5_d = torch.from_numpy(lens5).to(dev)
+    head5, tail5 = codes5_tm[:eg.E].t(), codes5_tm[eg.E:].t()
+    hl5 = lens5_d.clamp(max=eg.E)
+    el5 = torch.full_like(lens5_d, eg.E)
+    w_ad = torch.cat([
+        readscan.gather_window(head5, hl5, torch.zeros_like(hl5), ep5.awin),
+        readscan.gather_window(tail5, el5, el5 - ep5.awin, ep5.awin,
+                               rc=True)])
+    tso_start = torch.full_like(hl5, ep5.m_ad + ep5.bc_len)
+    w_tso = readscan.gather_window(head5, hl5, tso_start, ep5.twin)
+    tcodes = ts._unpack(rows_d)[0]
+    w_conf = tcodes[:, :5 * 140 + ts.WI_CONFIRM].unfold(
+        1, ts.WI_CONFIRM, 140).reshape(-1, ts.WI_CONFIRM).contiguous()
+    w_conf[::9, 100:] = dna.PAD           # windows running off their tile
+    w_conf[5] = dna.PAD                   # an all-PAD row
+    tp_adc = tp.peq_adc
+
+    def mutate_rows(w):
+        """One substituted code per window row (fresh content)."""
+        w = w.clone()
+        n = w.shape[0]
+        c = torch.randint(0, w.shape[1], (n,), device=dev, generator=g)
+        w[torch.arange(n, device=dev), c] = torch.randint(
+            0, 4, (n,), device=dev, generator=g, dtype=torch.int8)
+        return w
+
+    win1_shapes = {
+        "win1": (w_ad, ep5.peq_ad, ep5.m_ad),
+        "win1_adc": (w_ad[:B].contiguous(), ep5.peq_adc, ep5.m_adc),
+        "win1_tso": (w_tso, ep5.peq_tso, ep5.m_tso),
+        "win1_confirm": (w_conf, tp_adc, tp.m_adc),
+        "win1_b37": (torch.cat([w_ad[:36], torch.full_like(w_ad[:1],
+                                                           dna.PAD)]),
+                     ep5.peq_ad, ep5.m_ad),
+        "win1_b1": (w_tso[7:8].contiguous(), ep5.peq_tso, ep5.m_tso),
+    }
+    for key, (w, peq1, m1) in win1_shapes.items():
+        results[key] = compare(
+            key, lambda x: editdist.myers_win1(x, peq1, m1),
+            lambda x: editdist.myers_win1_plain(x, peq1, m1),
+            [w] + [mutate_rows(w) for _ in range(TIMED_CALLS)])
+        nw, ww = w.shape
+        results[key].update(bound(nw * ww + 2 * nw * 4,
+                                  nw * ww * MYERS_OPS, sm_hz))
+        results[key].update({"windows": nw, "columns": ww, "m": m1})
+        results[key]["device_ms"] = kernel_device_ms(
+            lambda x: editdist.myers_win1(x, peq1, m1),
+            [mutate_rows(w) for _ in range(TIMED_CALLS)], "win1_kernel")
+    ed_pad, pos_pad = editdist.myers_win1(win1_shapes["win1_b37"][0],
+                                          ep5.peq_ad, ep5.m_ad)
+    if (int(ed_pad[36]), int(pos_pad[36])) != (ep5.m_ad, -1):
+        raise SystemExit("win1: an all-PAD row must report (m, -1)")
+
+    # the composed 5p edge body (torch ops + three window searches) beside
+    # the fused 3p kernel, both over one 32,768-read chunk
+    results["edge_composed_5p"] = compare(
+        "edge_composed_5p", lambda c: edge_scan2(c, lens5_d, ep5),
+        lambda c: eg.edge_scan2_plain(c[:eg.E].t(), c[eg.E:].t(), lens5_d,
+                                      ep5),
+        [codes5_tm, codes5_tm.clone()])
+    results["edge_composed_5p"]["split_ms"] = composed_split(
+        codes5_tm, lens5_d, ep5)
+    del variants, wvars, rows_d, meta, wins, codes_tm, tcodes
+    del win1_shapes, w_ad, w_tso, w_conf, codes5_tm, head5, tail5
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(SEED + 100)
@@ -544,8 +810,21 @@ def _run(pool, wl, cells, work, dev) -> int:
 
     # ---- the main path: scanfastq on cuda ----
     counters = (edge_scan2, bcsearch.bc_sweep, ts.tile_scan,
+                editdist.myers_win1, eg.edge_scan2_composed,
                 eg.edge_scan2_plain, bcsearch.bc_sweep_plain,
-                ts.tile_scan_plain)
+                ts.tile_scan_plain, editdist.myers_win1_plain)
+
+    def read_counts():
+        return ({"edgescan": edge_scan2.launches,
+                 "bcsweep": bcsearch.bc_sweep.launches,
+                 "tilescan": ts.tile_scan.launches,
+                 "win1": editdist.myers_win1.launches,
+                 "edge_composed": eg.edge_scan2_composed.launches},
+                {"edgescan": eg.edge_scan2_plain.launches,
+                 "bcsweep": bcsearch.bc_sweep_plain.launches,
+                 "tilescan": ts.tile_scan_plain.launches,
+                 "win1": editdist.myers_win1_plain.launches})
+
     t0 = time.time()
     pipe = ScanFastqPipeline(cfg, whitelist=wl, chunk_size=READS_PER_FILE,
                              user_max_ed=2, cache_pass1=True, device="cuda")
@@ -555,19 +834,16 @@ def _run(pool, wl, cells, work, dev) -> int:
     stats = pipe.run([work / "run"], work / "out_cuda")
     torch.cuda.synchronize()
     run_s = time.time() - t_run
-    launches = {"edgescan": edge_scan2.launches,
-                "bcsweep": bcsearch.bc_sweep.launches,
-                "tilescan": ts.tile_scan.launches}
-    plain = {"edgescan": eg.edge_scan2_plain.launches,
-             "bcsweep": bcsearch.bc_sweep_plain.launches,
-             "tilescan": ts.tile_scan_plain.launches}
+    launches, plain = read_counts()
     total = N_FILES * READS_PER_FILE
     emit({"phase": "pipeline", "reads": stats.total_reads,
           "used_list": len(pipe.used_strs), "run_s": round(run_s, 3),
           "reads_per_s": round(total / run_s, 1), "stats": stats.to_json(),
           "launches": launches, "plain_launches": plain,
           "s": round(time.time() - t0, 2)})
-    if min(launches.values()) < 1 or any(plain.values()):
+    if (min(launches[k] for k in ("edgescan", "bcsweep", "tilescan")) < 1
+            or launches["win1"] or launches["edge_composed"]
+            or any(plain.values())):
         raise SystemExit(f"main path launches {launches}, plain {plain}")
     if (stats.total_reads != total or stats.stranded < 0.8 * total
             or stats.bc_assigned < 0.6 * total
@@ -576,44 +852,174 @@ def _run(pool, wl, cells, work, dev) -> int:
 
     # ---- parity: cuda vs cpu (plain bodies) on a subset ----
     t0 = time.time()
-    sub = work / "parity_in"
-    sub.mkdir()
-    head = next(fastq.read_fastq(work / "run" / "reads0.fastq", N_PARITY))
-    with open(sub / "subset.fastq", "wb") as fh:
-        for n, s, q in zip(head.names, head.seqs, head.quals):
-            fh.write(b"@%s\n%s\n+\n%s\n" % (n, s, q))
-    blobs = {}
-    for d in ("cuda", "cpu"):
-        p = ScanFastqPipeline(cfg, whitelist=wl, chunk_size=1024,
-                              user_max_ed=2, cache_pass1=True, device=d)
-        p.run([sub], work / f"parity_{d}")
-        out = work / f"parity_{d}"
-        blobs[d] = {str(f.relative_to(out)): f.read_bytes()
-                    for f in sorted(out.rglob("*")) if f.is_file()
-                    and f.name != "ReadScanner.html"}
-    same = sorted(k for k in blobs["cuda"]
-                  if blobs["cpu"].get(k) == blobs["cuda"][k])
-    n_ok = n_tot = 0
-    for f in sorted((work / "parity_cuda" / "passed").iterdir()):
-        for ch in fastq.read_fastq(f):
-            for nm in ch.names:
-                info = readname.parse_name(nm)
-                if info is None:
-                    raise SystemExit(f"unparsable passed name {nm!r}")
-                o = info.orig_name
-                if o.startswith("r") and "c" in o and "sp" not in o:
-                    n_tot += 1
-                    n_ok += info.bc == cells[int(o.split("c")[1])]
-    emit({"phase": "parity", "reads": len(head), "files": len(blobs["cuda"]),
-          "identical": len(same), "bc_truth_agree": n_ok, "bc_checked": n_tot,
+    head = write_subset(work / "run" / "reads0.fastq",
+                        work / "parity_in" / "subset.fastq", N_PARITY)
+    n_files, _, out_cuda = cuda_cpu_outputs(
+        lambda d: ScanFastqPipeline(cfg, whitelist=wl, chunk_size=1024,
+                                    user_max_ed=2, cache_pass1=True,
+                                    device=d),
+        [work / "parity_in"], work, "parity")
+    n_ok, n_tot = bc_truth(out_cuda / "passed", cells)
+    emit({"phase": "parity", "reads": len(head), "files": n_files,
+          "identical": n_files, "bc_truth_agree": n_ok, "bc_checked": n_tot,
           "s": round(time.time() - t0, 2)})
-    if set(blobs["cuda"]) != set(blobs["cpu"]) or \
-            len(same) != len(blobs["cuda"]):
-        diff = sorted(set(blobs["cuda"]) ^ set(blobs["cpu"])
-                      | (set(blobs["cuda"]) - set(same)))
-        raise SystemExit(f"cuda/cpu outputs differ: {diff}")
     if n_tot < 1000 or n_ok < 0.97 * n_tot:
         raise SystemExit(f"barcode truth agreement {n_ok}/{n_tot}")
+
+    # ---- the third main path: 5p scanfastq on cuda (composed edge body) ----
+    t0 = time.time()
+    pipe5 = ScanFastqPipeline(cfg5, whitelist=wl, chunk_size=READS_PER_FILE,
+                              user_max_ed=2, cache_pass1=True, device="cuda")
+    for c in counters:
+        c.launches = 0
+    t_run = time.time()
+    stats5 = pipe5.run([work / "run5p"], work / "out5p_cuda")
+    torch.cuda.synchronize()
+    run5_s = time.time() - t_run
+    launches5, plain5 = read_counts()
+    emit({"phase": "pipeline_5p", "reads": stats5.total_reads,
+          "used_list": len(pipe5.used_strs), "run_s": round(run5_s, 3),
+          "reads_per_s": round(total / run5_s, 1),
+          "assigned_share": round(stats5.bc_assigned / total, 4),
+          "stats": stats5.to_json(), "launches": launches5,
+          "plain_launches": plain5, "s": round(time.time() - t0, 2)})
+    if (min(launches5[k] for k in ("win1", "edge_composed", "bcsweep",
+                                   "tilescan")) < 1
+            or launches5["win1"] != 3 * launches5["edge_composed"]
+            or launches5["edgescan"] or any(plain5.values())):
+        raise SystemExit(f"5p path launches {launches5}, plain {plain5}")
+    if (stats5.total_reads != total or stats5.stranded < 0.8 * total
+            or stats5.bc_assigned < 0.6 * total):
+        raise SystemExit(f"implausible 5p scan stats: {stats5.to_json()}")
+
+    t0 = time.time()
+    head = write_subset(work / "run5p" / "reads0.fastq",
+                        work / "parity5p_in" / "subset.fastq", N_PARITY)
+    n_files, _, out_cuda = cuda_cpu_outputs(
+        lambda d: ScanFastqPipeline(cfg5, whitelist=wl, chunk_size=1024,
+                                    user_max_ed=2, cache_pass1=True,
+                                    device=d),
+        [work / "parity5p_in"], work, "parity5p")
+    n_ok, n_tot = bc_truth(out_cuda / "passed", cells)
+    emit({"phase": "parity_5p", "reads": len(head), "files": n_files,
+          "identical": n_files, "bc_truth_agree": n_ok, "bc_checked": n_tot,
+          "s": round(time.time() - t0, 2)})
+    if n_tot < 1000 or n_ok < 0.97 * n_tot:
+        raise SystemExit(f"5p barcode truth agreement {n_ok}/{n_tot}")
+
+    # ---- the fourth main path: the random-barcode control (synchronous
+    # pass 2: split_chimeras, scan_reads, bc_search) on cuda ----
+    t0 = time.time()
+
+    def control(d, size):
+        return ScanFastqPipeline(cfg, whitelist=wl, chunk_size=size,
+                                 user_max_ed=CONTROL_MAX_ED,
+                                 random_barcode=True, seed=CONTROL_SEED,
+                                 device=d)
+
+    pipe_c = control("cuda", READS_PER_FILE)
+    for c in counters:
+        c.launches = 0
+    t_run = time.time()
+    stats_c = pipe_c.run([work / "run" / "reads0.fastq"],
+                         work / "control_cuda")
+    torch.cuda.synchronize()
+    ctl_s = time.time() - t_run
+    launches_c, plain_c = read_counts()
+    false_share = stats_c.bc_assigned / max(stats_c.stranded, 1)
+    n_files, _, _ = cuda_cpu_outputs(lambda d: control(d, 1024),
+                                     [work / "parity_in"], work,
+                                     "control_parity")
+    emit({"phase": "v1_control", "reads": stats_c.total_reads,
+          "used_list": len(pipe_c.used_strs), "max_ed": CONTROL_MAX_ED,
+          "seed": CONTROL_SEED, "run_s": round(ctl_s, 3),
+          "reads_per_s": round(stats_c.total_reads / ctl_s, 1),
+          "falsely_assigned_share": false_share,
+          "normal_run_assigned_share": stats.bc_assigned / stats.stranded,
+          "normal_run_max_ed": 2, "stats": stats_c.to_json(),
+          "launches": launches_c, "plain_launches": plain_c,
+          "parity_reads": N_PARITY, "parity_files_identical": n_files,
+          "s": round(time.time() - t0, 2)})
+    if (min(launches_c[k] for k in ("win1", "edgescan", "bcsweep",
+                                    "tilescan")) < 1
+            or launches_c["edge_composed"] or any(plain_c.values())):
+        raise SystemExit(f"control launches {launches_c}, plain {plain_c}")
+    if (stats_c.total_reads != READS_PER_FILE
+            or stats_c.stranded < 0.8 * READS_PER_FILE
+            or stats_c.split_chimeric < 1 or not false_share < 0.05):
+        raise SystemExit(f"control: falsely assigned share {false_share}, "
+                         f"stats {stats_c.to_json()}")
+
+    # where the three runs' time goes: each once more with a timer (and a
+    # device sync) around every stage
+    t0 = time.time()
+    splits = {}
+    for tag, make, inputs, first in (
+            ("3p", lambda: ScanFastqPipeline(
+                cfg, whitelist=wl, chunk_size=READS_PER_FILE, user_max_ed=2,
+                cache_pass1=True, device="cuda"), [work / "run"], stats),
+            ("5p", lambda: ScanFastqPipeline(
+                cfg5, whitelist=wl, chunk_size=READS_PER_FILE, user_max_ed=2,
+                cache_pass1=True, device="cuda"), [work / "run5p"], stats5),
+            ("control", lambda: control("cuda", READS_PER_FILE),
+             [work / "run" / "reads0.fastq"], stats_c)):
+        splits[tag] = scanfastq_split(make(), inputs, work / f"split_{tag}")
+        if splits[tag].pop("stats") != first.to_json():
+            raise SystemExit(f"instrumented {tag} run differs from the first")
+        splits[tag] = splits[tag]["seconds"]
+    emit({"phase": "scanfastq_split", "seconds": splits,
+          "s": round(time.time() - t0, 2)})
+
+    # the empty-used-list branch: a whitelist that shares no barcode with
+    # the reads, so pass 1 finds nothing and pass 2 is pass2_chunk
+    t0 = time.time()
+    other = [w for w in synth.make_whitelist(
+        np.random.default_rng(SEED + 400), 64) if w not in set(wl)]
+    for c in counters:
+        c.launches = 0
+    n_files, pipe_e, _ = cuda_cpu_outputs(
+        lambda d: ScanFastqPipeline(cfg, whitelist=other, chunk_size=1024,
+                                    user_max_ed=2, device=d),
+        [work / "parity_in"], work, "empty_list")
+    launches_e, _ = read_counts()
+    emit({"phase": "empty_used_list", "reads": pipe_e.stats.total_reads,
+          "used_list": len(pipe_e.used_strs),
+          "bc_assigned": pipe_e.stats.bc_assigned,
+          "stranded": pipe_e.stats.stranded, "launches": launches_e,
+          "files_identical": n_files, "s": round(time.time() - t0, 2)})
+    if (pipe_e.used_peq is not None or pipe_e.stats.bc_assigned
+            or pipe_e.stats.total_reads != N_PARITY
+            or pipe_e.stats.stranded < 0.8 * N_PARITY
+            or launches_e["win1"] < 3 or launches_e["bcsweep"]):
+        raise SystemExit(f"empty used list: {pipe_e.stats.to_json()}, "
+                         f"launches {launches_e}")
+
+    # the q-gram prefilter mode against the brute sweep mode, both fused
+    # with the edge scan on the card, over the parity subset and the 3p
+    # run's used list
+    t0 = time.time()
+    head = next(fastq.read_fastq(work / "parity_in" / "subset.fastq",
+                                 N_PARITY))
+    found = {}
+    for mode in ("sweep", "prefilter"):
+        model = readscan.ReadScanModel(cfg, device="cuda")
+        model.prepare_search(pipe.used_pats, len(pipe.used_strs),
+                             radius=PREFILTER_RADIUS, mode=mode)
+        found[mode] = model.finish_search(
+            model.scan_search_async(head.seqs, head.quals))[1]
+    near = found["sweep"]["ed"] <= PREFILTER_RADIUS
+    pre_bad = int((found["prefilter"]["ed"][near]
+                   != found["sweep"]["ed"][near]).sum()
+                  + (found["prefilter"]["idx"][near]
+                     != found["sweep"]["idx"][near]).sum()
+                  + (found["prefilter"]["ed"][~near] != bcsearch.BIG).sum())
+    emit({"phase": "prefilter", "reads": len(head),
+          "used_list": len(pipe.used_strs), "radius": PREFILTER_RADIUS,
+          "within_radius": int(near.sum()), "mismatches": pre_bad,
+          "s": round(time.time() - t0, 2)})
+    if pre_bad or near.sum() < 0.5 * len(head):
+        raise SystemExit(f"prefilter vs sweep: {pre_bad} mismatches, "
+                         f"{int(near.sum())} reads within the radius")
 
     # ---- the second main path: computeconsensus on cuda ----
     t0 = time.time()
@@ -696,7 +1102,10 @@ def _run(pool, wl, cells, work, dev) -> int:
                         "sicelore_tpu/ops/tilescan_tpu.py:51", "tilescan"),
            "bandalign": ("sicelore_tpu_torch/csrc/bandalign.cu",
                          "sicelore_tpu/ops/poa_tpu.py:251",
-                         "bandalign_512_32")}
+                         "bandalign_512_32"),
+           "win1": ("sicelore_tpu_torch/csrc/win1.cu",
+                    "sicelore_tpu/ops/editdist.py:265", "win1")}
+    launches["win1"] = launches5["win1"]      # the 5p run's count
     kernels = []
     for name, (source, replaces, key) in src.items():
         r = results[key]
@@ -723,9 +1132,33 @@ def _run(pool, wl, cells, work, dev) -> int:
                               f"pairs_{Lc}_{W}": o["pairs"]})
                 entry["max_abs_err"] = max(entry["max_abs_err"],
                                            o["max_abs_err"])
+        if name == "win1":
+            entry.update({"windows": r["windows"], "columns": r["columns"],
+                          "device_ms": r["device_ms"],
+                          "launches_v1_control": launches_c["win1"]})
+            for k in ("adc", "tso", "confirm", "b37", "b1"):
+                o = results[f"win1_{k}"]
+                entry.update({f"ms_{k}": o["ms"],
+                              f"device_ms_{k}": o["device_ms"],
+                              f"plain_ms_{k}": o["plain_ms"],
+                              f"bound_ms_{k}": o["bound_ms"],
+                              f"windows_{k}": o["windows"],
+                              f"columns_{k}": o["columns"]})
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           o["max_abs_err"])
         kernels.append(entry)
     emit({"summary": {"scanfastq_reads_per_s": round(total / run_s, 1),
                       "scanfastq_run_s": round(run_s, 3),
+                      "scanfastq_5p_reads_per_s": round(total / run5_s, 1),
+                      "scanfastq_5p_run_s": round(run5_s, 3),
+                      "control_reads_per_s":
+                          round(stats_c.total_reads / ctl_s, 1),
+                      "control_falsely_assigned_share": false_share,
+                      "edge_composed_5p_ms":
+                          results["edge_composed_5p"]["ms"],
+                      "edge_composed_5p_split_ms":
+                          results["edge_composed_5p"]["split_ms"],
+                      "scanfastq_split_s": splits,
                       "consensus_umis_per_s": round(N_MOLECULES / cons_s, 1),
                       "consensus_run_s": round(cons_s, 3),
                       "consensus_split_s": split,

@@ -1,17 +1,26 @@
-"""Read-scan model: the v2 two-half scan passes of `scanfastq` on a device.
+"""Read-scan model: the scan passes of `scanfastq` on a device.
 
-Port of the v2 path of `sicelore_tpu/models/readscan.py::ReadScanModel` (the
-one `ScanFastqPipeline.run` drives). Every read ships as N-safe int8 codes
-(`ops.edgescan.encode_two_half`), so the device result is final for every
-read: no read or tile re-runs on a second, exact path. Device outputs are
-int32 rows named by the `*_ROW_NAMES` tuples and finalized on the host
-(`finalize_rows_np`) into the same dicts the JAX model returns.
+Port of `sicelore_tpu/models/readscan.py::ReadScanModel`: the v2 two-half
+passes that `ScanFastqPipeline.run` drives, and the v1 composite edge scan
+(`__call__`, `scan_reads`) and bucketed chimera scan (`scan_internal`) behind
+the synchronous pass 2. Every read ships as N-safe int8 codes, so the device
+result is final for every read: no read or tile re-runs on a second, exact
+path. v2 device outputs are int32 rows named by the `*_ROW_NAMES` tuples and
+finalized on the host (`finalize_rows_np`) into the same dicts the JAX model
+returns.
 
-Kernels on this path (CUDA for CUDA tensors, plain torch for CPU tensors):
+Kernels (CUDA for CUDA tensors, plain torch for CPU tensors):
   * edge scan       ops.edgescan_cuda.edge_scan2   (pass 1, split rescans,
-                                                    streaming pass 2)
+                                                    streaming pass 2; 3p)
+  * window search   ops.editdist.myers_win1        (the composed edge scan of
+                    5p and other configs outside the edge kernel, the v1
+                    composite scan, scan_internal)
   * whitelist sweep ops.bcsearch.bc_sweep          (pass 2)
   * chimera scan    ops.tilescan_cuda.tile_scan    (pass 2)
+
+The JAX model's `_pack_batch` (nibble packing, power-of-two batch buckets)
+and `_pack_meta` (int16 meta rows) have no counterpart: they shape the
+TPU's uploads and downloads, not the scan's results.
 
 `*_async` methods launch on the device's current stream and start the
 device->host copy; the matching `finish_*` waits for it, so the pipeline
@@ -25,13 +34,17 @@ import torch
 from sicelore_tpu_torch.utils import dna
 from sicelore_tpu_torch.utils.config import PipelineConfig
 from sicelore_tpu_torch.device import resolve
-from sicelore_tpu_torch.ops import bcsearch, editdist
+from sicelore_tpu_torch.ops import bcsearch, editdist, scan
 from sicelore_tpu_torch.ops import edgescan as eg2
 from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
 from sicelore_tpu_torch.ops.tilescan_cuda import (ROW_BYTES, TILE,
                                                   tile_params, tile_scan)
 
 I16_BIG = 32000   # sweep EDs at or above it report not-found (bcsearch.BIG)
+BIG = 10**9
+EDGE = eg2.E      # bases kept from each read end in the v1 composite
+WI_INTERNAL = 160  # scan_internal confirm window: polyA tail+UMI+BC+adapter
+K_INTERNAL = 4     # internal polyA/T sites kept per read and direction
 
 TILE_CTX = 192      # ownership context: >= confirm window (160) + run slack
 TILE_STRIDE = TILE - 2 * TILE_CTX
@@ -53,6 +66,276 @@ def gather_window(seqs: torch.Tensor, lens: torch.Tensor,
         comp = torch.as_tensor(dna._COMP, device=seqs.device)
         w = comp[w.long()].flip(1)
     return w
+
+
+# ---------------------------------------------------------------------------
+# v1: composite edge scan and bucketed internal scan (synchronous pass 2)
+# ---------------------------------------------------------------------------
+
+EDGE_META_KEYS = (
+    "is_fwd", "stranded", "has_polyat", "ps", "pe", "ae", "adapter_ed",
+    "adapter_complete_ed", "adapter_run", "tso_end", "tso_ed",
+    "x_start", "x_end")
+_BOOL_KEYS = {"is_fwd", "stranded", "has_polyat"}
+
+
+def make_edge_scan_fn(cfg: PipelineConfig):
+    """The v1 edge scan over fixed [B, 2*EDGE] composites.
+
+    Returns scan_fn(seqs [B, L] int8, lens [B] int32 composite lengths) ->
+    dict of tensors in composite stranded coordinates (the host remaps them,
+    `remap_composite`; QVs are host-side). The three adapter searches go
+    through `scan.adapter_search`: the window-search kernel on the card."""
+    p = eg2.edge_params(cfg)
+    nbases = cfg.readscanner.nbases_of_adapter_seq_in_readname
+    x_len = 40 + nbases  # X= spans [AE-40, AE+nbases-1]
+    awin, twin = p.awin, p.twin
+
+    def scan_fn(seqs: torch.Tensor, lens: torch.Tensor) -> dict:
+        B = seqs.shape[0]
+        lens = lens.to(torch.int32)
+        zeros = torch.zeros_like(lens)
+        fwd_found, fwd_ps, fwd_pe = scan.polyat_find(
+            seqs, lens, base=dna.A, k=p.k, min_count=p.mc, window=p.win_p,
+            from_end=True)
+        rev_found, rev_ts, rev_te = scan.polyat_find(
+            seqs, lens, base=dna.T, k=p.k, min_count=p.mc, window=p.win_p,
+            from_end=False)
+
+        # adapter search, unified sense-orientation window
+        if p.is5p:
+            w_fwd = gather_window(seqs, lens, zeros, awin)
+            w_rev = gather_window(seqs, lens, lens - awin, awin, rc=True)
+        else:
+            w_fwd = gather_window(seqs, lens, fwd_pe + 1, awin, rc=True)
+            w_rev = gather_window(seqs, lens, rev_ts - awin, awin)
+        ed2, pos2 = scan.adapter_search(torch.cat([w_fwd, w_rev], dim=0),
+                                        p.peq_ad, p.m_ad)
+        ed_f = torch.where(fwd_found, ed2[:B], BIG)
+        ed_r = torch.where(rev_found, ed2[B:], BIG)
+        pos_f, pos_r = pos2[:B], pos2[B:]
+
+        ok_f = fwd_found & (ed_f <= p.mm_ad)
+        ok_r = rev_found & (ed_r <= p.mm_ad)
+        stranded = ok_f | ok_r
+        is_fwd = torch.where(stranded, ok_f & (~ok_r | (ed_f <= ed_r)),
+                             fwd_found)
+
+        has_pat = torch.where(is_fwd, fwd_found, rev_found)
+        ps = torch.where(is_fwd, fwd_ps, lens - 1 - rev_te)
+        pe = torch.where(is_fwd, fwd_pe, lens - 1 - rev_ts)
+        ps = torch.where(has_pat, ps, -1)
+        pe = torch.where(has_pat, pe, -1)
+        if p.is5p:
+            ae = torch.where(is_fwd, pos_f, pos_r)
+        else:
+            ae = torch.where(is_fwd, fwd_pe + awin - pos_f,
+                             lens - 1 - (rev_ts - awin + pos_r))
+        ad_ed = torch.where(is_fwd, ed_f, ed_r)
+        ad_pos_local = torch.where(is_fwd, pos_f, pos_r)
+        ae = torch.where(stranded, ae, -1)
+
+        w_used = torch.where(is_fwd[:, None], w_fwd, w_rev)
+        edc, _ = scan.adapter_search(w_used, p.peq_adc, p.m_adc)
+        ad_runs, _ = scan.match_run_stats(w_used, p.adc_codes, p.m_adc)
+        bc_windows = gather_window(w_used, torch.full_like(lens, awin),
+                                   ad_pos_local + 1 - p.pad, p.bw)
+
+        # TSO: 3p at the stranded 5' start; 5p after adapter + BC
+        t0 = (ae + 1 + p.bc_len) if p.is5p else zeros
+        w5_f = gather_window(seqs, lens, t0, twin)
+        w5_r = gather_window(seqs, lens, lens - twin - t0, twin, rc=True)
+        w5 = torch.where(is_fwd[:, None], w5_f, w5_r)
+        tso_ed, tso_pos = scan.adapter_search(w5, p.peq_tso, p.m_tso)
+        bail = scan.run_bailout(w5, p.tso_codes, p.m_tso, p.c1, p.c2)
+        tso_found = (tso_ed <= p.mm_tso) | bail
+        tso_end = torch.where(tso_found, t0 + tso_pos + (p.off_tso - 1), -1)
+
+        if p.is5p:
+            xs_str, xe_str = ae - nbases + 1, ae + (x_len - nbases)
+        else:
+            xs_str, xe_str = ae - (x_len - nbases), ae + nbases - 1
+        return {
+            "is_fwd": is_fwd, "stranded": stranded, "has_polyat": has_pat,
+            "ps": ps, "pe": pe, "ae": ae,
+            "adapter_ed": torch.where(stranded, ad_ed, BIG),
+            "adapter_complete_ed": edc, "adapter_run": ad_runs,
+            "bc_windows": bc_windows,
+            "tso_end": tso_end, "tso_ed": tso_ed,
+            "x_start": xs_str, "x_end": xe_str,
+        }
+
+    return scan_fn
+
+
+def unpack_edge_meta(meta: np.ndarray) -> dict:
+    """[len(EDGE_META_KEYS), B] int32 rows of the v1 edge scan -> dict
+    (flags as bool, everything else int32)."""
+    out = {}
+    for r, k in enumerate(EDGE_META_KEYS):
+        v = meta[r].astype(np.int32)
+        out[k] = v.astype(bool) if k in _BOOL_KEYS else v
+    return out
+
+
+def compute_qvs_np(qv: np.ndarray, lens: np.ndarray, out: dict,
+                   bc_len: int, is5p: bool = False) -> None:
+    """Host-side QV means over a [B, L] qual matrix (read / X region / BC
+    region); adds read_qv, x_qv and bc_qv to `out`."""
+    B, L = qv.shape
+    lens = np.asarray(lens).astype(np.int64)
+    qsum = qv.sum(axis=1, dtype=np.int32)
+    out["read_qv"] = (qsum / np.maximum(lens, 1)).astype(np.float32)
+    is_fwd = out["is_fwd"]
+    ae = out["ae"]
+    rows = np.arange(B)[:, None]
+
+    def window_mean(s_str, e_str):
+        s = np.where(is_fwd, s_str, lens - 1 - e_str)
+        e = np.where(is_fwd, e_str, lens - 1 - s_str)
+        s = np.clip(s, 0, L)
+        e1 = np.minimum(np.clip(e + 1, 0, L), lens)
+        n = np.maximum(e1 - s, 1)
+        Wm = max(int(np.max(n, initial=1)), 1)
+        cols = s[:, None] + np.arange(Wm, dtype=np.int64)
+        m = cols < e1[:, None]
+        w = qv[rows, np.minimum(cols, L - 1)].astype(np.int32)
+        return ((w * m).sum(axis=1) / n).astype(np.float32)
+
+    if "x_start" in out:
+        out["x_qv"] = window_mean(out["x_start"], out["x_end"])
+    if is5p:  # BC right AFTER the adapter end in 5' chemistry
+        out["bc_qv"] = window_mean(ae + 1, ae + bc_len)
+    else:
+        out["bc_qv"] = window_mean(ae - bc_len, ae - 1)
+
+
+_ENC_PAD0 = dna._ENC.copy()
+_ENC_PAD0[0] = dna.PAD  # NUL byte = padding in the bulk-encode fast path
+
+
+def encode_composite(seqs: list[bytes], quals: list[bytes]):
+    """Encode reads into fixed [B, 2*EDGE] composites (head + tail splice).
+
+    Reads longer than 2*EDGE keep their first and last EDGE bases; all
+    stranding evidence lives there. Returns (codes, qv, comp_lens,
+    true_lens)."""
+    edge = EDGE
+    B, W = len(seqs), 2 * edge
+    true_lens = np.fromiter((len(s) for s in seqs), dtype=np.int32, count=B)
+    comp_lens = np.minimum(true_lens, W)
+    z = b"\x00"
+    sbuf = b"".join(
+        s[:edge].ljust(edge, z)
+        + (s[edge:W] if len(s) <= W else s[-edge:]).ljust(edge, z)
+        for s in seqs)
+    codes = _ENC_PAD0[np.frombuffer(sbuf, np.uint8)].reshape(B, W)
+    qbuf = b"".join(
+        q[:edge].ljust(edge, z)
+        + (q[edge:W] if len(q) <= W else q[-edge:]).ljust(edge, z)
+        for q in quals)
+    qarr = np.frombuffer(qbuf, np.uint8).reshape(B, W)
+    qv = np.where(qarr >= 33, qarr.astype(np.int16) - 33, 0).astype(np.int8)
+    return codes, qv, comp_lens, true_lens
+
+
+def remap_composite(pos: np.ndarray, true_lens: np.ndarray) -> np.ndarray:
+    """Map composite stranded coords back to true read coords: for reads
+    longer than 2*EDGE, composite positions >= EDGE belong to the read tail
+    (true = pos + true_len - 2*EDGE). Negative positions pass through."""
+    shift = np.maximum(true_lens - 2 * EDGE, 0)
+    out = np.where((pos >= EDGE), pos + shift, pos)
+    return np.where(pos < 0, pos, out)
+
+
+def internal_sites(seqs: torch.Tensor, lens: torch.Tensor, *, base: int,
+                   k: int, min_count: int, edge: int):
+    """Up to K_INTERNAL disjoint internal polyA/T runs (chimera candidates).
+
+    Returns (count [B] int32, starts [B, K_INTERNAL] int32 window-start
+    positions, -1 padded)."""
+    max_sites = K_INTERNAL
+    B, L = seqs.shape
+    dev = seqs.device
+    if L < k:
+        return (torch.zeros(B, dtype=torch.int32, device=dev),
+                torch.full((B, max_sites), -1, dtype=torch.int32, device=dev))
+    lens = lens.long()
+    counts = scan._rolling_count((seqs == base).to(torch.int32), k)
+    pos = torch.arange(L - k + 1, device=dev)[None, :]
+    inread = pos <= (lens[:, None] - k)
+    internal = (pos >= edge) & ((pos + k - 1) < (lens[:, None] - edge))
+    ok = (counts >= min_count) & inread & internal
+    starts = []
+    for _ in range(max_sites):
+        j = torch.where(ok, pos, BIG).min(dim=1).values  # first passing window
+        starts.append(torch.where(j < BIG, j, -1))
+        # mask the contiguous run starting at j (conservatively [j, j + 2k))
+        ok = ok & ~((pos >= j[:, None]) & (pos < (j[:, None] + 2 * k)))
+    st = torch.stack(starts, dim=1).to(torch.int32)
+    return (st >= 0).sum(dim=1).to(torch.int32), st
+
+
+def make_internal_scan_fn(cfg: PipelineConfig):
+    """The bucketed full-length internal/chimera scan.
+
+    Returns fn(seqs [B, L] int8, lens [B]) -> int32 [2 + 6*K_INTERNAL, B]
+    (see `unpack_internal_meta`): per-site confirmation EDs and split
+    positions (part 2 starts at split). The two [B*K_INTERNAL, 160] confirm
+    searches go through `scan.adapter_search`."""
+    pa = cfg.polyat
+    adc = dna.encode(cfg.adapter3p.sequence_complete)
+    m_adc = len(adc)
+    peq_adc = editdist.build_peq(adc[None, :])
+    k = pa.internal_pat_length
+    mc = scan.min_count_for(k, pa.internal_fraction_at_in_polyat)
+    edge = pa.window_search_for_polya
+    Wi, K = WI_INTERNAL, K_INTERNAL
+
+    def fn(seqs: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        B = seqs.shape[0]
+        lens = lens.to(torch.int32)
+        nA, sA = internal_sites(seqs, lens, base=dna.A, k=k, min_count=mc,
+                                edge=edge)
+        nT, sT = internal_sites(seqs, lens, base=dna.T, k=k, min_count=mc,
+                                edge=edge)
+        rs = seqs.repeat_interleave(K, dim=0)
+        rl = lens.repeat_interleave(K)
+        sAf, sTf = sA.reshape(-1), sT.reshape(-1)
+        # A-junction: ...cDNA1 polyA rcUMI rcBC rcAdapterC | cDNA2...: the
+        # complete adapter (sense) in the rc window after the run start
+        a_ed, a_pos = scan.adapter_search(
+            gather_window(rs, rl, sAf, Wi, rc=True), peq_adc, m_adc)
+        a_ed = torch.where(sAf >= 0, a_ed, BIG).reshape(B, K)
+        a_split = (sAf + Wi - 1 - a_pos + (m_adc - 1) + 1).reshape(B, K)
+        # T-junction: ...rc(cDNA1) | adapterC BC UMI polyT cDNA2...: the
+        # complete adapter (sense) right before the polyT run
+        t_ed, t_pos = scan.adapter_search(
+            gather_window(rs, rl, sTf - Wi, Wi), peq_adc, m_adc)
+        t_ed = torch.where(sTf >= 0, t_ed, BIG).reshape(B, K)
+        t_split = (sTf - Wi + t_pos - (m_adc - 1)).reshape(B, K)
+        return torch.cat([
+            nA[None, :], sA.t(), a_ed.t(), a_split.t(),
+            nT[None, :], sT.t(), t_ed.t(), t_split.t()], dim=0
+        ).to(torch.int32)
+
+    return fn
+
+
+def unpack_internal_meta(meta: np.ndarray) -> dict:
+    """[2 + 6*K_INTERNAL, B] int32 rows of the internal scan -> dict of
+    [B] counts and [B, K_INTERNAL] starts, confirm EDs and splits."""
+    K = K_INTERNAL
+    rows = {}
+    off = 0
+    for name, n in (("n_internal_a", 1), ("internal_a", K),
+                    ("internal_a_ed", K), ("internal_a_split", K),
+                    ("n_internal_t", 1), ("internal_t", K),
+                    ("internal_t_ed", K), ("internal_t_split", K)):
+        v = meta[off:off + n]
+        rows[name] = v[0] if n == 1 else v.T
+        off += n
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +424,7 @@ P2_META_ROWS = (("is_fwd", eg2.ROW_IS_FWD), ("stranded", eg2.ROW_STRANDED),
                 ("has_polyat", eg2.ROW_HAS_POLYAT), ("ps", eg2.ROW_PS),
                 ("pe", eg2.ROW_PE), ("ae", eg2.ROW_AE),
                 ("tso_end", eg2.ROW_TSO_END))
-SEARCH_ROW_NAMES = ("best_ed", "best_idx", "second_ed")
+SEARCH_ROW_NAMES = ("best_ed", "best_idx", "second_ed", "overflow")
 P1_ROW_NAMES = tuple(n for n, _ in P1_ROWS)
 P1F_ROW_NAMES = tuple(n for n, _ in P1F_ROWS)
 P2_ROW_NAMES = tuple(n for n, _ in P2_META_ROWS) + SEARCH_ROW_NAMES
@@ -195,10 +478,20 @@ def finalize_rows_np(arr: np.ndarray, names, true_lens: np.ndarray,
 # Pass bodies (device tensors in, int32 rows out)
 # ---------------------------------------------------------------------------
 
-def _sweep(wins_u8: torch.Tensor, peq_bc: torch.Tensor, nvalid: int,
-           cfg: PipelineConfig) -> torch.Tensor:
-    return bcsearch.bc_sweep(wins_u8, peq_bc, nvalid,
-                             cfg.barcodes.cell_bc_length, track_pos=False)[:3]
+def _search_rows(wins_u8: torch.Tensor, peq_bc: torch.Tensor, nvalid: int,
+                 cfg: PipelineConfig, mode: str, qgram_t, radius: int,
+                 K: int) -> torch.Tensor:
+    """The whitelist search of text-major BC windows (uint8 [bw, B]) ->
+    int32 [4, B] (SEARCH_ROW_NAMES). "sweep": the brute sweep kernel,
+    overflow 0. "prefilter": the q-gram candidate search, exact within
+    `radius`; overflow marks the reads the caller re-runs on the sweep."""
+    m = cfg.barcodes.cell_bc_length
+    if mode == "prefilter":
+        res = bcsearch.qgram_prefilter_search(
+            wins_u8.t().to(torch.int8), qgram_t, peq_bc, nvalid, m, radius, K)
+        return res[[0, 1, 2, 4]]
+    best = bcsearch.bc_sweep(wins_u8, peq_bc, nvalid, m, track_pos=False)
+    return torch.cat([best[:3], torch.zeros_like(best[:1])])
 
 
 def make_pass1_body2(cfg: PipelineConfig):
@@ -227,27 +520,31 @@ def make_pass1_full_body(cfg: PipelineConfig):
     return fn
 
 
-def make_scan_search2_body(cfg: PipelineConfig):
-    """Fused edge scan + whitelist sweep: fn(codes_tm, lens, peq_bc, nvalid)
-    -> int32 [len(P2_ROW_NAMES), B]."""
+def make_scan_search2_body(cfg: PipelineConfig, mode: str = "sweep",
+                           radius: int = 2, K: int = 64):
+    """Fused edge scan + whitelist search: fn(codes_tm, lens, peq_bc,
+    nvalid, qgram_t) -> int32 [len(P2_ROW_NAMES), B]."""
     p = eg2.edge_params(cfg)
     sel = [r for _, r in P2_META_ROWS]
 
-    def fn(codes_tm, lens, peq_bc, nvalid):
+    def fn(codes_tm, lens, peq_bc, nvalid, qgram_t=None):
         meta = edge_scan2(codes_tm, lens, p)
         wins = meta[eg2.ROW_BC0:].to(torch.uint8)
-        return torch.cat([meta[sel], _sweep(wins, peq_bc, nvalid, cfg)])
+        return torch.cat([meta[sel], _search_rows(
+            wins, peq_bc, nvalid, cfg, mode, qgram_t, radius, K)])
 
     return fn
 
 
-def make_sweep_only_body(cfg: PipelineConfig):
-    """Whitelist sweep alone over cached BC windows (uint8 [bw, B]) — the
-    cached pipeline's pass-2 device step. fn(wins, peq_bc, nvalid) -> int32
-    [3, B]: best_ed, best_idx, second_ed."""
+def make_sweep_only_body(cfg: PipelineConfig, mode: str = "sweep",
+                         radius: int = 2, K: int = 64):
+    """Whitelist search alone over cached BC windows (uint8 [bw, B]) — the
+    cached pipeline's pass-2 device step. fn(wins, peq_bc, nvalid, qgram_t)
+    -> int32 [4, B]: best_ed, best_idx, second_ed, overflow."""
 
-    def fn(wins_u8, peq_bc, nvalid):
-        return _sweep(wins_u8, peq_bc, nvalid, cfg)
+    def fn(wins_u8, peq_bc, nvalid, qgram_t=None):
+        return _search_rows(wins_u8, peq_bc, nvalid, cfg, mode, qgram_t,
+                            radius, K)
 
     return fn
 
@@ -283,6 +580,8 @@ class ReadScanModel:
         self._tile_params = tile_params(self.cfg)
         self._pass1_fn = make_pass1_body2(self.cfg)
         self._pass1_full_fn = make_pass1_full_body(self.cfg)
+        self._edge_fn = make_edge_scan_fn(self.cfg)
+        self._internal_fn = make_internal_scan_fn(self.cfg)
 
     @property
     def bc_window_width(self) -> int:
@@ -291,23 +590,30 @@ class ReadScanModel:
     def prepare_search(self, patterns: np.ndarray, n_valid: int,
                        radius: int = 2, mode: str | None = None,
                        K: int = 64):
-        """Bind a used-barcode list ([N, m] int8 code matrix) for the sweep.
-        `mode` None/"sweep" is the brute whitelist sweep (the kernel). The
-        q-gram "prefilter" mode (the only user of `radius` and `K`) is not
-        ported yet and raises NotImplementedError."""
-        if mode == "prefilter":
-            raise NotImplementedError(
-                "the q-gram prefilter search is not ported yet (ROADMAP.md "
-                "Queue 1, next slice (a))")
-        if mode not in (None, "sweep"):
+        """Bind a used-barcode list ([N, m] int8 code matrix) for the
+        whitelist search. `mode` None/"sweep" is the brute sweep (the
+        kernel). "prefilter" is the q-gram candidate search for very large
+        used lists (`ops.bcsearch.qgram_prefilter_search`, at most `K`
+        candidates a read): its results are exact within `radius`, the
+        dynamic-ED search radius, and report not-found beyond it."""
+        mode = mode or "sweep"
+        if mode not in ("sweep", "prefilter"):
             raise ValueError(f"unknown search mode {mode!r}")
         used_peq = editdist.build_peq(patterns) if len(patterns) else \
             np.zeros((4, 1), np.uint32)
         self._peq_raw = used_peq
         self._peq_bc = bcsearch.peq_device(used_peq, self.device)
         self._n_valid = n_valid
-        self._search_fn = make_scan_search2_body(self.cfg)
-        self._sweep_only_fn = make_sweep_only_body(self.cfg)
+        self._mode = mode
+        self._radius = radius
+        self._qgram_t = None
+        if mode == "prefilter":
+            qt = np.zeros((256, used_peq.shape[1]), np.float32)
+            if len(patterns):
+                qt = bcsearch.build_qgram_table(patterns)
+            self._qgram_t = torch.from_numpy(qt).to(self.device)
+        self._search_fn = make_scan_search2_body(self.cfg, mode, radius, K)
+        self._sweep_only_fn = make_sweep_only_body(self.cfg, mode, radius, K)
 
     # -- uploads ---------------------------------------------------------
 
@@ -332,6 +638,10 @@ class ReadScanModel:
                             self.cfg.barcodes.cell_bc_length, self.is5p,
                             qsum, need_x=False)
         return out
+
+    def scan_pass1(self, seqs: list[bytes], quals: list[bytes]):
+        """Pass-1 scan of one chunk, synchronously."""
+        return self.finish_pass1(self.scan_pass1_async(seqs, quals))
 
     # -- pass-1 FULL variant + sweep-only pass 2 (cached pipeline) -------
 
@@ -361,16 +671,48 @@ class ReadScanModel:
         prepare_search."""
         wins = torch.from_numpy(np.ascontiguousarray(windows_tm)).to(
             self.device)
-        res = self._sweep_only_fn(wins, self._peq_bc, self._n_valid)
-        return _to_host_async(res)
+        res = self._sweep_only_fn(wins, self._peq_bc, self._n_valid,
+                                  self._qgram_t)
+        return _to_host_async(res), windows_tm
+
+    def _bc_dict(self, rows: dict) -> dict:
+        """Search rows -> bc dict {ed, idx, ed2}: ed at or above I16_BIG
+        reports bcsearch BIG, ed2 there reports INT_MAX (no second
+        barcode)."""
+        ed = np.where(rows["best_ed"] >= I16_BIG, bcsearch.BIG,
+                      rows["best_ed"])
+        ed2 = np.where(rows["second_ed"] >= I16_BIG, editdist.INT_MAX,
+                       rows["second_ed"])
+        return {"ed": ed, "idx": rows["best_idx"], "ed2": ed2}
+
+    def _redo_exact(self, bc: dict, idxs: np.ndarray, wins: np.ndarray):
+        """Re-run the reads `idxs` (prefilter overflow: more than K
+        candidates) through the exact sweep over their BC windows `wins`
+        [len(idxs), bw]; in prefilter mode the results are masked to the
+        search radius like the prefilter's own."""
+        sub = bcsearch.bc_search(wins, self._peq_raw, self._n_valid,
+                                 self.cfg.barcodes.cell_bc_length,
+                                 device=self.device)
+        if self._mode == "prefilter":
+            r = self._radius
+            sub["ed2"] = np.where(sub["ed2"] > r, editdist.INT_MAX,
+                                  sub["ed2"])
+            over = sub["ed"] > r
+            sub["ed"] = np.where(over, bcsearch.BIG, sub["ed"])
+            sub["idx"] = np.where(over, bcsearch.BIG, sub["idx"])
+        for k in bc:
+            bc[k][idxs] = sub[k]
 
     def finish_bc_sweep(self, handle):
-        """-> bc dict {ed, idx, ed2}: ed at or above I16_BIG reports
-        bcsearch BIG, ed2 there reports INT_MAX (no second barcode)."""
-        arr = _host(handle).astype(np.int64)
-        ed = np.where(arr[0] >= I16_BIG, bcsearch.BIG, arr[0])
-        ed2 = np.where(arr[2] >= I16_BIG, editdist.INT_MAX, arr[2])
-        return {"ed": ed, "idx": arr[1], "ed2": ed2}
+        """-> bc dict {ed, idx, ed2} with the same not-found/overflow
+        semantics as finish_search's fused rows."""
+        h, windows_tm = handle
+        arr = _host(h).astype(np.int64)
+        bc = self._bc_dict(dict(zip(SEARCH_ROW_NAMES, arr)))
+        idxs = np.nonzero(arr[3])[0]
+        if len(idxs):
+            self._redo_exact(bc, idxs, windows_tm[:, idxs].T)
+        return bc
 
     # -- fused scan + sweep (streaming pass 2, split-part rescans) -------
 
@@ -378,22 +720,65 @@ class ReadScanModel:
         """Launch the fused edge scan + whitelist sweep; force with
         finish_search. Requires prepare_search."""
         codes_tm, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
-        rows = self._search_fn(codes_tm, lens, self._peq_bc, self._n_valid)
-        return _to_host_async(rows), qv2, true_lens, qsum
+        rows = self._search_fn(codes_tm, lens, self._peq_bc, self._n_valid,
+                               self._qgram_t)
+        return _to_host_async(rows), qv2, true_lens, qsum, seqs, quals
 
     def finish_search(self, handle):
         """Force a scan_search_async result -> (edge dict, best dict)."""
-        h, qv2, true_lens, qsum = handle
+        h, qv2, true_lens, qsum, seqs, quals = handle
         out = finalize_rows_np(_host(h), P2_ROW_NAMES, true_lens, self.cfg)
         # pass-2 emit consumes only x_qv (bc/read QV are pass-1 criteria)
         eg2.compute_qvs2_np(qv2, true_lens, out,
                             self.cfg.barcodes.cell_bc_length, self.is5p,
                             qsum, need_bc=False, need_read=False)
-        ed = np.where(out["best_ed"] >= I16_BIG, bcsearch.BIG,
-                      out["best_ed"])
-        ed2 = np.where(out["second_ed"] >= I16_BIG, editdist.INT_MAX,
-                       out["second_ed"])
-        return out, {"ed": ed, "idx": out["best_idx"], "ed2": ed2}
+        bc = self._bc_dict(out)
+        idxs = np.nonzero(out["overflow"])[0]
+        if len(idxs):
+            # the fused rows carry no BC windows: scan those reads again
+            codes_tm, lens, *_ = self._upload([seqs[i] for i in idxs],
+                                              [quals[i] for i in idxs])
+            _, wins = self._pass1_full_fn(codes_tm, lens)
+            self._redo_exact(bc, idxs, wins.t().cpu().numpy())
+        return out, bc
+
+    # -- v1: composite edge scan + bucketed chimera scan (synchronous) ---
+
+    def __call__(self, seqs, quals, lens):
+        """v1 edge scan of [B, L] int8 code batches -> dict of numpy arrays
+        in composite coordinates (QVs are computed host-side from `quals`;
+        only the codes ship to the device)."""
+        out_d = self._edge_fn(
+            torch.from_numpy(np.ascontiguousarray(seqs, dtype=np.int8)).to(
+                self.device),
+            torch.from_numpy(np.asarray(lens, dtype=np.int32)).to(
+                self.device))
+        meta = torch.stack([out_d[k].to(torch.int32)
+                            for k in EDGE_META_KEYS])
+        out = unpack_edge_meta(meta.cpu().numpy())
+        out["bc_windows"] = out_d["bc_windows"].cpu().numpy()
+        compute_qvs_np(np.asarray(quals, dtype=np.int8), lens, out,
+                       self.cfg.barcodes.cell_bc_length, self.is5p)
+        return out
+
+    def scan_reads(self, seqs: list[bytes], quals: list[bytes]):
+        """Composite edge scan of raw reads; coords remapped to true reads."""
+        codes, qv, comp_lens, true_lens = encode_composite(seqs, quals)
+        out = self(codes, qv, comp_lens)
+        for key in ("ps", "pe", "ae", "x_start", "x_end"):
+            out[key] = remap_composite(out[key], true_lens)
+        out["true_lens"] = true_lens
+        return out
+
+    def scan_internal(self, seqs, lens):
+        """Internal/chimera scan on full-length [B, L] int8 batches -> dict
+        of numpy arrays (`unpack_internal_meta`)."""
+        meta = self._internal_fn(
+            torch.from_numpy(np.ascontiguousarray(seqs, dtype=np.int8)).to(
+                self.device),
+            torch.from_numpy(np.asarray(lens, dtype=np.int32)).to(
+                self.device))
+        return unpack_internal_meta(meta.cpu().numpy())
 
     # -- tiled internal/chimera scan -------------------------------------
 

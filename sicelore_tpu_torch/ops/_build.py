@@ -16,6 +16,7 @@ point takes device pointers and the stream as `void*`, returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -106,9 +107,11 @@ def load(stem: str) -> ctypes.CDLL:
         return lib
 
 
+@functools.lru_cache(maxsize=None)
 def bind(stem: str, fn: str, n_ptr: int, n_int: int):
     """C entry `fn` of library `stem` taking n_ptr pointers, n_int ints and
-    the stream (in that order), returning a cudaError_t as int."""
+    the stream (in that order), returning a cudaError_t as int. Bound once
+    a process: a wrapper's call costs a dictionary lookup."""
     f = getattr(load(stem), fn)
     f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                   + [ctypes.c_void_p])

@@ -5,7 +5,10 @@ Port of `sicelore_tpu/ops/bcsearch.py`: every read's BC window against every
 used barcode (Myers semi-global ED), reduced to [4, B] int32 rows best_ed,
 best_idx (first argmin), second_ed (BIG when no second barcode) and the best
 match's end position (-1 unless track_pos). Barcode lanes >= nvalid count as
-BIG. The q-gram prefilter search is not ported yet (ROADMAP.md Queue 1).
+BIG. `qgram_prefilter_search` is the candidate-pruned search for very large
+used lists: one matrix product, a top-K and a Myers verify of the K
+candidates, all torch ops (it runs no Pallas kernel in the JAX package
+either).
 """
 from __future__ import annotations
 
@@ -98,3 +101,117 @@ def bc_search(windows: np.ndarray, patterns_peq: np.ndarray, n_patterns: int,
     out = out.astype(np.int64)
     ed2 = np.where(out[2] >= BIG, editdist.INT_MAX, out[2])
     return {"ed": out[0], "idx": out[1], "ed2": ed2, "end_pos": out[3]}
+
+
+# ---------------------------------------------------------------------------
+# q-gram prefilter search (large used lists)
+# ---------------------------------------------------------------------------
+#
+# By the q-gram lemma (Ukkonen), ED(pattern, s) <= k implies that pattern and
+# s share at least (m - q + 1) - q*k q-grams. With q = 4 the 256-dim 4-gram
+# count vectors of the read window and of every barcode turn "shared >= T"
+# into one [B, 256] x [256, N] product: dot(counts_w, counts_b) >= the bag
+# intersection, so dot < T proves ED > k (no false negatives; false
+# positives are verified). Only the K best-scoring candidates of a read run
+# the exact Myers verify: results are exact within `radius`, and ed/ed2
+# beyond it report not-found.
+QGRAM_Q = 4
+
+
+def build_qgram_table(patterns: np.ndarray) -> np.ndarray:
+    """[N, m] int8 barcode codes (all < 4) -> [256, N] float32 4-gram
+    counts, the right operand of the prefilter product."""
+    N, m = patterns.shape
+    ng = m - QGRAM_Q + 1
+    out = np.zeros((256, N), np.float32)
+    ids = np.zeros((N, ng), np.int32)
+    for i in range(QGRAM_Q):
+        ids = (ids << 2) | np.minimum(patterns[:, i:ng + i], 3).astype(np.int32)
+    cols = np.broadcast_to(np.arange(N)[:, None], ids.shape)
+    np.add.at(out, (ids.ravel(), cols.ravel()), 1.0)
+    return out
+
+
+def qgram_threshold(m: int, radius: int) -> int:
+    """Minimal shared-4-gram count compatible with ED <= radius."""
+    return (m - QGRAM_Q + 1) - QGRAM_Q * radius
+
+
+def qgram_prefilter_search(windows: torch.Tensor, qgram_t: torch.Tensor,
+                           peq: torch.Tensor, nvalid: int, m: int,
+                           radius: int, K: int = 64) -> torch.Tensor:
+    """Candidate-pruned barcode search, exact within `radius`.
+
+    windows [B, W] int8; qgram_t [256, N] float32 (build_qgram_table); peq
+    [4, N] Peq bit patterns (int32 or int64); lanes >= nvalid never match.
+    Returns [5, B] int32 (best_ed, best_idx, second_ed, best_end_pos,
+    overflow): best/second are BIG when no barcode lies within `radius`;
+    ties pick the lowest index (as the brute sweep does). overflow[b] = 1
+    when more than K candidates passed the q-gram threshold: the caller must
+    re-run those reads through the exact sweep.
+
+    The scores are float32 products of small integer counts (a window holds
+    at most W - 3 4-grams, a barcode m - 3), so every score is an integer
+    far below 2^24 and exact, as it is in the JAX package's bfloat16 x
+    bfloat16 -> float32 product. The K candidates are the top-K of an int32
+    key that orders by score and then by the lower index, so which
+    candidates are verified does not depend on `torch.topk`'s tie order."""
+    B, W = windows.shape
+    N = qgram_t.shape[1]
+    dev = windows.device
+    T = qgram_threshold(m, radius)
+    Kk = min(K, N)
+    if (W - QGRAM_Q + 2) * (m - QGRAM_Q + 2) * N >= 2**31:
+        raise ValueError(f"used list of {N} barcodes overflows the int32 "
+                         f"candidate key")
+    if isinstance(peq, np.ndarray):
+        peq = torch.from_numpy(peq.astype(np.int64))
+    peq64 = peq.to(device=dev, dtype=torch.int64) & 0xFFFFFFFF
+    peq6 = editdist.peq_tensor(peq64, dev)                      # [6, N]
+    lane = torch.arange(N, device=dev, dtype=torch.int32)[None, :]
+    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    step = max(1, PLAIN_CHUNK // max(N, 1))
+    for b0 in range(0, B, step):
+        w = windows[b0:b0 + step].long()
+        nb = w.shape[0]
+        ng = W - QGRAM_Q + 1
+        ids = torch.zeros((nb, ng), dtype=torch.int64, device=dev)
+        ok = torch.ones((nb, ng), dtype=torch.bool, device=dev)
+        for i in range(QGRAM_Q):
+            c = w[:, i:ng + i]
+            ok &= c < 4
+            ids = (ids << 2) | c.clamp(max=3)
+        counts = torch.zeros((nb, 256), dtype=torch.float32, device=dev)
+        counts.scatter_add_(1, ids, ok.to(torch.float32))
+        scores = torch.matmul(counts, qgram_t).to(torch.int32)  # [nb, N]
+        scores = torch.where(lane < nvalid, scores, -1)
+        overflow = ((scores >= T).sum(dim=1) > K).to(torch.int32)
+        key = scores * N + (N - 1 - lane)
+        top_i = torch.topk(key, Kk, dim=1).indices              # [nb, Kk]
+        cand_ok = scores.gather(1, top_i) >= T
+
+        # exact Myers verify of the candidates (a pattern set per read)
+        peq_c = peq6[:, top_i].permute(1, 0, 2)                 # [nb, 6, Kk]
+        rows = torch.arange(nb, device=dev)
+        PV = torch.full((nb, Kk), (1 << m) - 1, dtype=torch.int64,
+                        device=dev)
+        MV = torch.zeros_like(PV)
+        score = torch.full((nb, Kk), m, dtype=torch.int32, device=dev)
+        ed = score.clone()
+        pos = torch.full_like(score, -1)
+        for t in range(W):
+            eq = peq_c[rows, w[:, t]]
+            PV, MV, score = editdist.hyyro_step(PV, MV, score, eq, m - 1, 0)
+            improved = score < ed
+            ed = torch.where(improved, score, ed)
+            pos = torch.where(improved, t, pos)
+
+        inrad = cand_ok & (ed <= radius)
+        ed = torch.where(inrad, ed, BIG)
+        gidx = torch.where(inrad, top_i.to(torch.int32), BIG)
+        b1 = ed.min(dim=1).values
+        i1 = torch.where(ed == b1[:, None], gidx, BIG).min(dim=1).values
+        b2 = torch.where(gidx == i1[:, None], BIG, ed).min(dim=1).values
+        p1 = torch.where(gidx == i1[:, None], pos, -1).max(dim=1).values
+        out[:, b0:b0 + step] = torch.stack([b1, i1, b2, p1, overflow])
+    return out

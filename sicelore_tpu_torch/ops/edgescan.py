@@ -12,7 +12,12 @@ re-runs reads with N through the jnp body).
 The body emits [n_rows(cfg), B] int32 rows whose coordinates are HALF-LOCAL
 (tail columns for FWD reads, head columns for REV reads);
 `finalize_meta_np` maps them to true stranded read coordinates on the host.
-The CUDA kernel (`ops.edgescan_cuda`) computes the same rows.
+The fused CUDA kernel (`ops.edgescan_cuda`) computes the same rows for the
+configs inside its envelope. For the others (5p chemistry first of all)
+`edge_scan2_composed` runs the same body as torch ops with its three adapter
+searches through the window-search kernel, as `make_edge_scan2_jnp` does in
+the JAX package; `edge_scan2_plain` searches through the plain sweep on any
+device and is what both are compared with.
 """
 from __future__ import annotations
 
@@ -166,16 +171,39 @@ def edge_params(cfg: PipelineConfig) -> EdgeParams:
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch body (CPU path + the kernel's reference on the card)
+# The two-half body in torch ops: plain (CPU path + the kernels' reference on
+# the card) and composed (window-search kernel; configs outside the fused
+# kernel's envelope)
 # ---------------------------------------------------------------------------
 
 def edge_scan2_plain(head: torch.Tensor, tail: torch.Tensor,
                      lens: torch.Tensor, p: EdgeParams) -> torch.Tensor:
     """Two-half edge scan of make_edge_scan2_jnp: head/tail [B, E] int8
-    (PAD outside the read), lens [B] -> meta [14 + bw, B] int32."""
+    (PAD outside the read), lens [B] -> meta [14 + bw, B] int32. Searches
+    through the plain Myers sweep on any device, never through a kernel."""
+    edge_scan2_plain.launches += 1
+    return _edge_body(head, tail, lens, p, scan.adapter_search_plain)
+
+
+edge_scan2_plain.launches = 0
+
+
+def edge_scan2_composed(head: torch.Tensor, tail: torch.Tensor,
+                        lens: torch.Tensor, p: EdgeParams) -> torch.Tensor:
+    """The same rows as `edge_scan2_plain`, with the three adapter searches
+    (adapter [2B, awin], complete adapter [B, awin], TSO [B, twin]) through
+    `scan.adapter_search`: the window-search kernel for CUDA tensors. The
+    edge scan of every config the fused kernel does not cover."""
+    edge_scan2_composed.launches += 1
+    return _edge_body(head, tail, lens, p, scan.adapter_search)
+
+
+edge_scan2_composed.launches = 0
+
+
+def _edge_body(head, tail, lens, p: EdgeParams, search) -> torch.Tensor:
     from sicelore_tpu_torch.models.readscan import gather_window
 
-    edge_scan2_plain.launches += 1
     B = head.shape[0]
     dev = head.device
     lens = lens.to(device=dev, dtype=torch.int32)
@@ -198,8 +226,7 @@ def edge_scan2_plain(head: torch.Tensor, tail: torch.Tensor,
     else:
         w_fwd = gather_window(tail, elen, fwd_pe + 1, awin, rc=True)
         w_rev = gather_window(head, head_len, rev_ts - awin, awin)
-    ed2, pos2 = scan.adapter_search(torch.cat([w_fwd, w_rev], dim=0),
-                                    p.peq_ad, p.m_ad)
+    ed2, pos2 = search(torch.cat([w_fwd, w_rev], dim=0), p.peq_ad, p.m_ad)
     ed_f = torch.where(fwd_found, ed2[:B], BIG)
     ed_r = torch.where(rev_found, ed2[B:], BIG)
     pos_f, pos_r = pos2[:B], pos2[B:]
@@ -221,7 +248,7 @@ def edge_scan2_plain(head: torch.Tensor, tail: torch.Tensor,
     ad_pos_local = torch.where(is_fwd, pos_f, pos_r)
 
     w_used = torch.where(is_fwd[:, None], w_fwd, w_rev)
-    edc, _ = scan.adapter_search(w_used, p.peq_adc, p.m_adc)
+    edc, _ = search(w_used, p.peq_adc, p.m_adc)
     ad_runs, _ = scan.match_run_stats(w_used, p.adc_codes, p.m_adc)
     bc_windows = gather_window(w_used, torch.full_like(lens, awin),
                                ad_pos_local + 1 - p.pad, p.bw)
@@ -233,7 +260,7 @@ def edge_scan2_plain(head: torch.Tensor, tail: torch.Tensor,
     w5_f = gather_window(head, head_len, t0, twin)
     w5_r = gather_window(tail, elen, elen - twin - t0, twin, rc=True)
     w5 = torch.where(is_fwd[:, None], w5_f, w5_r)
-    tso_ed, tso_pos = scan.adapter_search(w5, p.peq_tso, p.m_tso)
+    tso_ed, tso_pos = search(w5, p.peq_tso, p.m_tso)
     bail = scan.run_bailout(w5, p.tso_codes, p.m_tso, p.c1, p.c2)
     tso_found = (tso_ed <= p.mm_tso) | bail
     tso_end = torch.where(tso_found, t0 + tso_pos + (p.off_tso - 1), -1)
@@ -262,9 +289,6 @@ def edge_scan2_plain(head: torch.Tensor, tail: torch.Tensor,
     rows[ROW_KMER_VALID] = kvalid
     meta = torch.stack([r.to(torch.int32) for r in rows], dim=0)
     return torch.cat([meta, bc_windows.t().to(torch.int32)], dim=0)
-
-
-edge_scan2_plain.launches = 0
 
 
 # ---------------------------------------------------------------------------

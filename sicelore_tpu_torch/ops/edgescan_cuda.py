@@ -1,9 +1,13 @@
-"""Edge-scan kernel wrapper (csrc/edgescan.cu).
+"""Edge-scan kernel wrapper (csrc/edgescan.cu) and the edge scan's dispatch.
 
-Replaces the Pallas kernel `sicelore_tpu/ops/edgescan_tpu.py::_edge_kernel`.
-For CPU tensors the wrapper runs the plain body `edgescan.edge_scan2_plain`;
-for CUDA tensors it launches the kernel or raises (5p chemistry and configs
-outside the kernel's envelope raise; nothing falls back).
+The kernel replaces the Pallas kernel
+`sicelore_tpu/ops/edgescan_tpu.py::_edge_kernel`. For CPU tensors `edge_scan2`
+runs the plain body `edgescan.edge_scan2_plain`. For CUDA tensors a config
+inside the kernel's envelope launches the fused kernel, and a config outside
+it (5p chemistry first of all) runs `edgescan.edge_scan2_composed`: the body
+as torch ops on the card with its adapter searches through the window-search
+kernel, the route `edgescan_tpu.make_edge_scan2_packed` takes for such
+configs in the JAX package. A kernel that fails raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -44,15 +48,15 @@ def edge_scan2(codes_tm: torch.Tensor, lens: torch.Tensor,
     if codes_tm.device.type == "cpu":
         return eg.edge_scan2_plain(codes_tm[:eg.E].t(), codes_tm[eg.E:].t(),
                                    lens, p)
-    if p.kernel_unsupported:
-        raise NotImplementedError(
-            "the CUDA edge-scan kernel does not cover this config "
-            f"({p.kernel_unsupported}); see ROADMAP.md Queue 2")
     if codes_tm.dtype != torch.int8 or not codes_tm.is_contiguous():
         raise ValueError("codes_tm must be contiguous int8")
     if (lens.dtype != torch.int32 or lens.shape != (B,)
             or lens.device != codes_tm.device or not lens.is_contiguous()):
         raise ValueError("lens must be contiguous int32 [B] on codes' device")
+    if p.kernel_unsupported:
+        return eg.edge_scan2_composed(codes_tm[:eg.E].t().contiguous(),
+                                      codes_tm[eg.E:].t().contiguous(),
+                                      lens, p)
     out = torch.empty((eg.ROW_BC0 + p.bw, B), dtype=torch.int32,
                       device=codes_tm.device)
     if B == 0:

@@ -1,9 +1,10 @@
-"""Myers bit-parallel semi-global edit distance (plain PyTorch).
+"""Myers bit-parallel semi-global edit distance: plain PyTorch, and the
+single-pattern window search kernel (csrc/win1.cu).
 
 Port of `sicelore_tpu/ops/editdist.py` (`build_peq`, the Hyyrö column update,
-`_eq_select`, `myers_sweep`, `best_two`). Patterns are Peq bitmasks: bit i of
-Peq[c, n] is set iff pattern n position i equals base c. N and PAD text
-characters select an all-zero mask, so they never match.
+`_eq_select`, `myers_sweep`, `best_two`, `myers_win1_pallas`). Patterns are
+Peq bitmasks: bit i of Peq[c, n] is set iff pattern n position i equals base
+c. N and PAD text characters select an all-zero mask, so they never match.
 
 Bit vectors are carried in int64 tensors (torch has no general uint32
 arithmetic). Only bits 0..m-1 (m <= 32) are read, and in two's-complement
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from sicelore_tpu_torch.ops import _build
 
 INT_MAX = 2**31 - 1  # reference reports ed_sec=2147483647 when none found
 
@@ -87,6 +90,53 @@ def myers_sweep(windows: torch.Tensor, peq, m: int):
         best_pos = torch.where(improved, torch.full_like(best_pos, t),
                                best_pos)
     return best, best_pos
+
+
+def myers_win1_plain(windows: torch.Tensor, peq1: np.ndarray, m: int):
+    """Plain PyTorch single-pattern window search: `myers_sweep` with one
+    pattern, sliced to it. windows [B, W] int8 -> (ed [B], end_pos [B])."""
+    myers_win1_plain.launches += 1
+    ed, pos = myers_sweep(windows, peq1, m)
+    return ed[:, 0], pos[:, 0]
+
+
+myers_win1_plain.launches = 0
+
+
+def myers_win1(windows: torch.Tensor, peq1: np.ndarray, m: int):
+    """Single-pattern semi-global search over each window row.
+
+    windows [B, W] int8 codes 0..5 (any B >= 0, W >= 1), peq1 [4, 1] uint32
+    Peq (`build_peq`) of one pattern of 1 <= m <= 32 bases. Returns (ed [B]
+    int32, end_pos [B] int32): the best edit distance and the 0-based column
+    where that match ends, the first column on ties, (m, -1) when no column
+    improved on m.
+    CPU tensors take the plain version; CUDA tensors launch csrc/win1.cu."""
+    if windows.dim() != 2 or windows.shape[1] < 1:
+        raise ValueError(f"windows must be [B, W >= 1], "
+                         f"got {tuple(windows.shape)}")
+    if not 1 <= m <= 32:
+        raise ValueError(f"pattern length must be 1..32, got {m}")
+    if peq1.shape != (4, 1) or peq1.dtype != np.uint32:
+        raise ValueError(f"peq1 must be uint32 [4, 1], got {peq1.dtype} "
+                         f"{peq1.shape}")
+    if windows.device.type == "cpu":
+        return myers_win1_plain(windows, peq1, m)
+    if windows.dtype != torch.int8 or not windows.is_contiguous():
+        raise ValueError("windows must be contiguous int8")
+    B, W = windows.shape
+    out = torch.empty((2, B), dtype=torch.int32, device=windows.device)
+    if B == 0:
+        return out.unbind(0)
+    fn = _build.bind("win1", "win1_launch", 2, 7)
+    _build.check(fn(windows.data_ptr(), out.data_ptr(), B, W, m,
+                    *(int(v) for v in peq1[:, 0].view(np.int32)),
+                    _build.stream_handle(windows.device)), "win1")
+    myers_win1.launches += 1
+    return out.unbind(0)
+
+
+myers_win1.launches = 0
 
 
 def best_two(ed: torch.Tensor):

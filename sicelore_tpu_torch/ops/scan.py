@@ -2,8 +2,10 @@
 consecutive-match run statistics and the TSO bailout.
 
 Port of `sicelore_tpu/ops/scan.py` (same policies; see that module for the
-reference behaviour spec). All ops take [B, L] int8 code batches and are
-the plain bodies the edge-scan kernel is held to.
+reference behaviour spec). All ops take [B, L] int8 code batches. With
+`adapter_search_plain` they make up the plain bodies the scan kernels are
+held to; with `adapter_search` (the window-search kernel on the card) they
+make up the composed scan bodies.
 """
 from __future__ import annotations
 
@@ -83,11 +85,20 @@ def polyat_find(seqs: torch.Tensor, lens: torch.Tensor, *, base: int, k: int,
     return found, start, end
 
 
-def adapter_search(windows: torch.Tensor, peq1, m: int):
+def adapter_search_plain(windows: torch.Tensor, peq1, m: int):
     """One pattern (Peq [4, 1]) against each window row -> ed [B], end
-    position [B] (int32; ties take the first position)."""
+    position [B] (int32; ties take the first position). Always the plain
+    Myers sweep, on any device: the plain scan bodies that the kernels are
+    compared with search through this one, never through a kernel."""
     ed, pos = editdist.myers_sweep(windows, peq1, m)
     return ed[:, 0], pos[:, 0]
+
+
+def adapter_search(windows: torch.Tensor, peq1, m: int):
+    """`adapter_search_plain`'s function by device: CPU tensors take the
+    plain sweep, CUDA tensors the window-search kernel
+    (`editdist.myers_win1`)."""
+    return editdist.myers_win1(windows.contiguous(), peq1, m)
 
 
 def _best_run_end(windows: torch.Tensor, pattern) -> torch.Tensor:

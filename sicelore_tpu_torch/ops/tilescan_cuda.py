@@ -94,7 +94,8 @@ def tile_scan_plain(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
     wins = torch.where(valid, wins, dna.PAD)
     comp = torch.as_tensor(dna._COMP, device=dev)
     wins = torch.cat([comp[wins[:S * K].long()].flip(1), wins[S * K:]])
-    ed6, pos6 = scan.adapter_search(wins, p.peq_adc, p.m_adc)
+    ed6, pos6 = scan.adapter_search_plain(wins, p.peq_adc,
+                                          p.m_adc)
     a_ed, t_ed = ed6[:S * K].reshape(S, K), ed6[S * K:].reshape(S, K)
     a_pos, t_pos = pos6[:S * K].reshape(S, K), pos6[S * K:].reshape(S, K)
     a_split = sA + Wi - 1 - a_pos + p.m_adc

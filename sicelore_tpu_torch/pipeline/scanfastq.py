@@ -17,9 +17,13 @@ scanner_stats.json — are byte-identical to the JAX pipeline's
     (sub)read's BC window sweeps the used list; assignment needs best ED <=
     the dynamic max ED and strictly better than the second best.
 
-Not ported yet (raise NotImplementedError, see ROADMAP.md): the v1 pass-2
-path `pass2_chunk` — the random-barcode negative control and the
-empty-used-list fallthrough — and multi-process runs.
+Negative control: `random_barcode` replaces each read's BC window with random
+bases (reference -e/--randomBarcode) to measure the false-assignment rate; it
+and a run whose pass 1 finds no barcode take the synchronous pass 2
+(`pass2_chunk`: `split_chimeras`, the v1 composite scan `scan_reads`, then
+`bc_search`), chunk by chunk.
+
+Not ported yet (see ROADMAP.md): multi-process runs.
 """
 from __future__ import annotations
 
@@ -36,13 +40,9 @@ from sicelore_tpu_torch.pipeline import readname
 from sicelore_tpu_torch.utils import dna
 from sicelore_tpu_torch.utils.config import DynamicEDTable, PipelineConfig
 from sicelore_tpu_torch.models import readscan
-from sicelore_tpu_torch.ops import editdist
+from sicelore_tpu_torch.ops import bcsearch, editdist
 
 BIG = 10**9
-V1_PATH_MISSING = (
-    "the v1 pass-2 path (random-barcode control, empty used list) runs "
-    "the single-pattern window search _win1_kernel, which is not ported "
-    "yet: ROADMAP.md Queue 1, next slice (a)")
 
 
 def load_whitelist(path: str | Path) -> np.ndarray:
@@ -117,6 +117,7 @@ class ScanFastqPipeline:
                  error_percent: int = 1,
                  random_barcode: bool = False,
                  chunk_size: int = 50_000,
+                 seed: int = 0,
                  user_max_ed: int | None = None,
                  known_cells: bool = False,
                  compress: bool = False,
@@ -151,6 +152,7 @@ class ScanFastqPipeline:
         self.user_max_ed = user_max_ed
         self.known_cells = known_cells  # -g/--cellRangerBCs: skip pass 1
         self.compress = compress
+        self.rng = np.random.default_rng(seed)   # random_barcode windows
         self.stats = ScanStats()
         # pass-1 state
         self.wl_counts = np.zeros(len(self.whitelist), dtype=np.int64)
@@ -173,10 +175,14 @@ class ScanFastqPipeline:
     # PASS 1
     # ------------------------------------------------------------------
 
+    def pass1_chunk(self, chunk: fastq.FastqChunk):
+        self._pass1_apply(self.model.scan_pass1(chunk.seqs, chunk.quals))
+
     def _cache_decision(self, files) -> bool:
         """Pass-1 cache policy: explicit cache_pass1 wins; auto enables it
         when the estimated in-memory footprint (raw fastq bytes, gz at a
-        ~3x expansion estimate) fits cache_budget_bytes."""
+        ~3x expansion estimate) fits cache_budget_bytes. Random-BC runs
+        always stream (they bypass the fused path)."""
         if self.random_barcode or self.known_cells:
             return False
         if self.cache_pass1 is not None:
@@ -357,10 +363,24 @@ class ScanFastqPipeline:
                     break
         return min(self.user_max_ed, cap) if self.user_max_ed is not None else cap
 
+    def split_chimeras(self, chunk: fastq.FastqChunk):
+        """Detect + split chimeric reads; returns a new chunk in read order
+        (synchronous wrapper over the tiled device scan). Split parts keep
+        the original name (part 1) / get `sp2`, `sp3`... (later parts);
+        reads with more than one confirmed junction are discarded."""
+        handle = self.model.internal_tiles_async(chunk.seqs)
+        splits, discard = self.model.finish_internal_tiles(handle)
+        self.stats.multi_chimeric_discarded += len(discard)
+        self.stats.split_chimeric += len(splits)
+        keep = {i: splits.get(i, []) for i in range(len(chunk))
+                if i not in discard}
+        return self._split_parts_chunk(chunk, keep)
+
     def _split_parts_chunk(self, chunk: fastq.FastqChunk,
                            splits: dict[int, list[int]]):
-        """Build a mini chunk holding the parts of split reads (part 1 keeps
-        the name, later parts get `sp2`, `sp3`, ...)."""
+        """Build a chunk of the reads in `splits` cut at their split
+        positions (part 1 keeps the name, later parts get `sp2`, `sp3`,
+        ...; a read with no position passes whole)."""
         names, comments, seqs, quals = [], [], [], []
         for i in sorted(splits):
             cuts = [0] + splits[i] + [len(chunk.seqs[i])]
@@ -405,9 +425,27 @@ class ScanFastqPipeline:
 
     def pass2_chunk(self, chunk: fastq.FastqChunk,
                     passed: fastq.FastqWriter, failed: fastq.FastqWriter):
-        """Synchronous v1 pass 2 (random-BC negative control / empty used
-        list): not ported yet."""
-        raise NotImplementedError(V1_PATH_MISSING)
+        """Synchronous pass 2 (random-BC negative control / empty used
+        list)."""
+        self.stats.total_reads += len(chunk)
+        chunk = self.split_chimeras(chunk)
+        out = self.model.scan_reads(chunk.seqs, chunk.quals)
+        n = len(chunk)
+        if self.used_peq is None:
+            # empty used-barcode list (e.g. wrong chemistry / no pass-1
+            # hits): nothing can be assigned
+            bc = {"ed": np.full(n, BIG, np.int64),
+                  "idx": np.zeros(n, np.int64),
+                  "ed2": np.full(n, editdist.INT_MAX, np.int64)}
+            self.pass2_emit(chunk, out, bc, passed, failed)
+            return
+        wins = out["bc_windows"]
+        if self.random_barcode:
+            wins = self.rng.integers(0, 4, wins.shape).astype(np.int8)
+        bc = bcsearch.bc_search(wins, self.used_peq, len(self.used_strs),
+                                self.cfg.barcodes.cell_bc_length,
+                                device=self.model.device)
+        self.pass2_emit(chunk, out, bc, passed, failed)
 
     def pass2_emit(self, chunk: fastq.FastqChunk, out: dict, bc: dict,
                    passed: fastq.FastqWriter, failed: fastq.FastqWriter,
@@ -554,13 +592,18 @@ class ScanFastqPipeline:
             json.dump(self.stats.to_json(), fh, indent=1)
         self.write_report(out_dir / "ReadScanner.html")
 
-    def _pass2_file_fused(self, f: Path, out_dir: Path, ext: str):
-        """Streaming pass 2 of one file: fused scan+sweep, double-buffered
+    def _pass2_file(self, f: Path, out_dir: Path, ext: str, use_fused: bool):
+        """Streaming pass 2 of one file. Fused scan+sweep, double-buffered
         (the device works on chunk i+1 while the host writes chunk i), with
-        split-part rescans deferred one chunk."""
+        split-part rescans deferred one chunk; or, without a bound used
+        list, the synchronous `pass2_chunk`."""
         pw = fastq.FastqWriter(out_dir / "passed" / f"{_stem(f)}FWD{ext}")
         fw = fastq.FastqWriter(out_dir / "failed" / f"{_stem(f)}FAILED{ext}")
         try:
+            if not use_fused:
+                for chunk in fastq.read_fastq(f, self.chunk_size):
+                    self.pass2_chunk(chunk, pw, fw)
+                return
             pending, split_job = None, None
             for chunk in fastq.read_fastq(f, self.chunk_size):
                 self.stats.total_reads += len(chunk)
@@ -584,8 +627,6 @@ class ScanFastqPipeline:
 
     def run(self, inputs: list[str | Path], out_dir: str | Path):
         """Single-process run over fastq files and/or directories."""
-        if self.random_barcode:
-            raise NotImplementedError(V1_PATH_MISSING)
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         files = []
@@ -625,16 +666,16 @@ class ScanFastqPipeline:
             self.write_barcode_list(out_dir / "BarcodeList.tsv")
         # PASS 2
         ext = ".fastq.gz" if self.compress else ".fastq"
-        if self.used_peq is None:      # empty used list: the v1 path
-            self._p1_cache.clear()
-            raise NotImplementedError(V1_PATH_MISSING)
-        self.model.prepare_search(self.used_pats, len(self.used_strs),
-                                  radius=self.max_ed())
-        if caching and not self.known_cells:
+        use_fused = not self.random_barcode and self.used_peq is not None
+        if use_fused:
+            self.model.prepare_search(self.used_pats, len(self.used_strs),
+                                      radius=self.max_ed())
+        if caching and use_fused and not self.known_cells:
             self._run_pass2_cached(out_dir, ext)
         else:
             for f in files:
-                self._pass2_file_fused(f, out_dir, ext)
+                self._pass2_file(f, out_dir, ext, use_fused)
+            self._p1_cache.clear()   # unused when use_fused fell through
         fastq.writer_barrier()
         self._write_reports(out_dir)
         return self.stats
@@ -657,6 +698,7 @@ class ScanFastqPipeline:
             seen.update(fastq.find_fastq_files(p) if p.is_dir() else [p])
         self.run(inputs, out_dir)
         ext = ".fastq.gz" if self.compress else ".fastq"
+        use_fused = not self.random_barcode and self.used_peq is not None
         last_new = time.time()
         while time.time() - last_new < idle_timeout:
             time.sleep(poll_interval)
@@ -677,6 +719,9 @@ class ScanFastqPipeline:
                      fastq.FastqWriter(
                         out_dir / "failed" / f"{_stem(f)}FAILED{ext}") as fw:
                     for chunk in fastq.read_fastq(f, self.chunk_size):
+                        if not use_fused:
+                            self.pass2_chunk(chunk, pw, fw)
+                            continue
                         self.stats.total_reads += len(chunk)
                         th = self.model.internal_tiles_async(chunk.seqs)
                         sh = self.model.scan_search_async(chunk.seqs,

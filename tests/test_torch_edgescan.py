@@ -1,5 +1,7 @@
-"""The port's plain two-half edge scan against sicelore_tpu's
-make_edge_scan2_jnp (exact equality of every row), for both chemistries."""
+"""The port's edge scans against sicelore_tpu's, for both chemistries, with
+exact equality: the plain and composed two-half bodies against
+make_edge_scan2_jnp (every row), the v1 composite scan (`scan_reads`) and the
+bucketed chimera scan (`scan_internal`) against the JAX model's."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,7 +11,10 @@ from sicelore_tpu.models import readscan as jax_readscan
 from sicelore_tpu.ops import edgescan as jax_eg
 from sicelore_tpu.utils import synth
 from sicelore_tpu.utils.config import PipelineConfig
+from sicelore_tpu_torch.models.readscan import ReadScanModel
 from sicelore_tpu_torch.ops import edgescan as eg
+from sicelore_tpu_torch.ops import editdist
+from sicelore_tpu_torch.ops import tilescan_cuda as ts
 from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
 from sicelore_tpu_torch.utils.config import PipelineConfig as TorchConfig
 
@@ -142,7 +147,6 @@ def test_patterns_and_used_list_peq_match_jax_model():
     """The 'weights': the pattern bitmasks of one PipelineConfig and the
     Peq of one bound used-barcode list are identical on both sides."""
     from sicelore_tpu.utils import dna
-    from sicelore_tpu_torch.models.readscan import ReadScanModel
 
     rng = np.random.default_rng(9)
     pats, _ = dna.encode_batch(
@@ -162,12 +166,126 @@ def test_patterns_and_used_list_peq_match_jax_model():
     np.testing.assert_array_equal(port._peq_bc.numpy().view(np.uint32),
                                   ref_bc[:, :300])
     assert not ref_bc[:, 300:].any()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.prepare_search(pats, 300, mode="prefilter")
+    # prefilter mode binds the q-gram table as well
+    model.prepare_search(pats, 300, mode="prefilter", radius=2)
+    port.prepare_search(pats, 300, mode="prefilter", radius=2)
+    ref_qt = np.asarray(model._qgram_t)           # padded to 1024 columns
+    assert port._qgram_t.dtype == torch.float32
+    np.testing.assert_array_equal(port._qgram_t.numpy(), ref_qt[:, :300])
+    assert not ref_qt[:, 300:].any() and ref_qt.sum() == 300 * 13
+    np.testing.assert_array_equal(port._peq_bc.numpy().view(np.uint32),
+                                  np.asarray(model._peq_bc)[:, :300])
+    with pytest.raises(ValueError, match="unknown search mode"):
+        port.prepare_search(pats, 300, mode="pallas")
 
 
 def test_kernel_envelope_rejects_5p_on_cuda_only():
+    """The fused kernel's envelope leaves 5p out; such a config takes the
+    composed body (adapter searches through myers_win1), which on CPU
+    tensors computes what edge_scan2 computes there."""
     cfg = TorchConfig()
     assert eg.edge_params(cfg).kernel_unsupported == ""
     cfg.chemistry = "5p"
-    assert "5p" in eg.edge_params(cfg).kernel_unsupported
+    p = eg.edge_params(cfg)
+    assert "5p" in p.kernel_unsupported
+    seqs, quals = _reads(np.random.default_rng(31), "5p", n=40)
+    codes, _, lens, _ = eg.encode_two_half(seqs, quals)
+    ct = torch.from_numpy(codes).t().contiguous()
+    before = (eg.edge_scan2_composed.launches,
+              editdist.myers_win1_plain.launches)
+    got = eg.edge_scan2_composed(ct[:eg.E].t(), ct[eg.E:].t(),
+                                 torch.from_numpy(lens), p)
+    assert eg.edge_scan2_composed.launches == before[0] + 1
+    assert editdist.myers_win1_plain.launches == before[1] + 3
+    assert torch.equal(got, edge_scan2(ct, torch.from_numpy(lens), p))
+    assert int(got[eg.ROW_STRANDED].sum()) > 20
+
+
+def test_plain_oracles_never_reach_the_window_search():
+    """edge_scan2_plain and tile_scan_plain are what the kernels are
+    compared with: they must search through the plain sweep, not through
+    myers_win1 (neither its kernel nor its counted plain version)."""
+    from sicelore_tpu_torch.models import readscan
+
+    rng = np.random.default_rng(8)
+    cfg = TorchConfig()
+    seqs, quals = _reads(rng, "3p", n=24)
+    seqs.append(synth.make_chimera(rng, "ACGTACGTACGTACGT",
+                                   "TTGCATGCATGCAAGT", cdna_len=500)["seq"])
+    quals.append(b"I" * len(seqs[-1]))
+    codes, _, lens, _ = eg.encode_two_half(seqs, quals)
+    rows, _, _ = readscan.build_tiles(seqs, cfg)
+    before = (editdist.myers_win1.launches,
+              editdist.myers_win1_plain.launches)
+    for chem in ("3p", "5p"):
+        c = TorchConfig()
+        c.chemistry = chem
+        eg.edge_scan2_plain(torch.from_numpy(codes[:, :eg.E]),
+                            torch.from_numpy(codes[:, eg.E:]),
+                            torch.from_numpy(lens), eg.edge_params(c))
+    out = ts.tile_scan_plain(torch.tensor(rows), ts.tile_params(cfg))
+    assert int((out[0] > 0).sum()) >= 1
+    assert (editdist.myers_win1.launches,
+            editdist.myers_win1_plain.launches) == before
+
+
+@pytest.mark.parametrize("chem", ["3p", "5p"])
+def test_scan_reads_matches_jax_model(chem):
+    """The v1 composite scan: every key of scan_reads' dict equals the JAX
+    model's (coordinates remapped to true reads, QVs, BC windows)."""
+    rng = np.random.default_rng(41 if chem == "3p" else 42)
+    cfg, tcfg = _cfgs(chem)
+    seqs, quals = _reads(rng, chem)
+    ref = jax_readscan.ReadScanModel(cfg).scan_reads(seqs, quals)
+    before = editdist.myers_win1_plain.launches
+    got = ReadScanModel(tcfg, device="cpu").scan_reads(seqs, quals)
+    assert editdist.myers_win1_plain.launches == before + 3
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype, (k, got[k].dtype, ref[k].dtype)
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    assert ref["stranded"].mean() > 0.6 and (ref["tso_end"] >= 0).any()
+
+
+def test_composite_encoding_and_remap_match_jax():
+    from sicelore_tpu_torch.models import readscan
+
+    rng = np.random.default_rng(6)
+    seqs, quals = _reads(rng, "3p", n=40)
+    got = readscan.encode_composite(seqs, quals)
+    ref = jax_readscan.encode_composite(seqs, quals)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    pos = rng.integers(-1, 2 * readscan.EDGE, len(seqs)).astype(np.int32)
+    np.testing.assert_array_equal(
+        readscan.remap_composite(pos, got[3]),
+        jax_readscan.remap_composite(pos, ref[3]))
+
+
+def test_scan_internal_matches_jax_model():
+    """The bucketed full-length chimera scan on reads with and without
+    internal junctions: site counts, starts, confirm EDs and split
+    positions equal the JAX model's."""
+    from sicelore_tpu.utils import dna
+
+    rng = np.random.default_rng(17)
+    cfg, tcfg = _cfgs("3p")
+    wl = synth.make_whitelist(rng, 8)
+    seqs, _ = _reads(rng, "3p", n=40)
+    for i in range(6):
+        seqs.append(synth.make_chimera(rng, wl[i], wl[i + 1],
+                                       cdna_len=int(rng.integers(350, 600)),
+                                       error_rate=0.03)["seq"])
+    codes, lens = dna.encode_batch(seqs, 4608)
+    ref = jax_readscan.ReadScanModel(cfg).scan_internal(codes, lens)
+    before = editdist.myers_win1_plain.launches
+    got = ReadScanModel(tcfg, device="cpu").scan_internal(codes, lens)
+    assert editdist.myers_win1_plain.launches == before + 2
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    edmax = cfg.adapter3p.max_complete_seq_needleman_mismatches
+    confirmed = ((ref["internal_a_ed"] <= edmax).any(axis=1)
+                 | (ref["internal_t_ed"] <= edmax).any(axis=1))
+    assert confirmed[-6:].all() and ref["n_internal_a"].max() >= 1

@@ -1,6 +1,6 @@
-"""The port's Myers edit distance, best-two reduction and whitelist sweep
-against sicelore_tpu's (jnp path, and the Pallas sweep in interpret mode):
-exact equality."""
+"""The port's Myers edit distance, best-two reduction, whitelist sweep and
+single-pattern window search against sicelore_tpu's (jnp path, and the Pallas
+kernels in interpret mode): exact equality."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -100,3 +100,69 @@ def test_bc_search_second_best_sentinel():
     assert (got["ed2"] == editdist.INT_MAX).all() and (got["ed"] == 0).all()
     for k in ("ed", "idx", "ed2", "end_pos"):
         np.testing.assert_array_equal(got[k], ref[k])
+
+
+def test_myers_win1_matches_pallas_interpret():
+    """tests/test_editdist.py's window-search case (B 1,024, W 48, m 19,
+    codes 0..5): the port's myers_win1 on CPU tensors (its plain version)
+    equals the Pallas kernel in interpret mode and the jnp sweep."""
+    rng = np.random.default_rng(3)
+    B, W, m = 1024, 48, 19
+    wins = rng.integers(0, 6, (B, W)).astype(np.int8)
+    peq = editdist.build_peq(rng.integers(0, 4, m).astype(np.int8)[None, :])
+    ed_p, pos_p = jax_ed.myers_win1_pallas(jnp.asarray(wins),
+                                           jnp.asarray(peq), m,
+                                           interpret=True)
+    ed_j, pos_j = jax_ed.myers_sweep(jnp.asarray(wins), jnp.asarray(peq), m)
+    before = (editdist.myers_win1_plain.launches,
+              editdist.myers_win1.launches)
+    ed, pos = editdist.myers_win1(torch.from_numpy(wins), peq, m)
+    assert editdist.myers_win1_plain.launches == before[0] + 1
+    assert editdist.myers_win1.launches == before[1]   # the kernel's count
+    assert ed.dtype == torch.int32 and pos.dtype == torch.int32
+    for got, a, b in ((ed, ed_p, ed_j[:, 0]), (pos, pos_p, pos_j[:, 0])):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(a))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(b))
+    assert (pos.numpy() >= 0).any()
+
+
+@pytest.mark.parametrize("B,W,m", [(37, 110, 22), (5, 1, 4), (64, 40, 32),
+                                   (1, 160, 31), (0, 12, 8)])
+def test_myers_win1_matches_jnp_sweep_at_any_shape(B, W, m):
+    """Shapes the Pallas wrapper cannot take (B not a multiple of 1,024,
+    W = 1, m = 32, B = 0), with planted matches, N, PAD tails and an
+    all-PAD row: (ed, end) equal the jnp sweep's; the all-PAD row reports
+    (m, -1)."""
+    rng = np.random.default_rng(100 * B + W)
+    pat = rng.integers(0, 4, m).astype(np.int8)
+    wins = rng.integers(0, 4, (B, W)).astype(np.int8)
+    for i in range(0, B, 2):
+        if W >= m:
+            off = int(rng.integers(0, W - m + 1))
+            wins[i, off:off + m] = pat
+            if m > 4:
+                wins[i, off + 2] = (wins[i, off + 2] + 1) % 4
+    wins[::5, W // 2] = 4
+    wins[::7, -(W // 3 + 1):] = 5
+    if B:
+        wins[B - 1] = 5
+    peq = editdist.build_peq(pat[None, :])
+    ed, pos = editdist.myers_win1(torch.from_numpy(wins), peq, m)
+    assert ed.shape == (B,) and pos.shape == (B,)
+    if B:
+        ed_j, pos_j = jax_ed.myers_sweep(jnp.asarray(wins),
+                                         jnp.asarray(peq), m)
+        np.testing.assert_array_equal(ed.numpy(), np.asarray(ed_j)[:, 0])
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(pos_j)[:, 0])
+        assert (int(ed[B - 1]), int(pos[B - 1])) == (m, -1)
+
+
+def test_myers_win1_rejects_what_the_kernel_does_not_take():
+    w = torch.zeros((4, 8), dtype=torch.int8)
+    peq = editdist.build_peq(np.zeros((1, 8), np.int8))
+    with pytest.raises(ValueError, match="1..32"):
+        editdist.myers_win1(w, peq, 33)
+    with pytest.raises(ValueError, match="W >= 1"):
+        editdist.myers_win1(torch.zeros((4, 0), dtype=torch.int8), peq, 8)
+    with pytest.raises(ValueError, match=r"\[4, 1\]"):
+        editdist.myers_win1(w, np.zeros((4, 2), np.uint32), 8)

@@ -65,13 +65,147 @@ def test_edge_kernel_matches_plain(dev, reads):
     assert torch.equal(k, pl)
 
 
+def _reads_5p(n=300):
+    rng = np.random.default_rng(14)
+    wl = synth.make_whitelist(rng, 64)
+    seqs = []
+    for i in range(n):
+        if i % 25 == 2:
+            s = synth.random_seq(rng, int(rng.integers(0, 900))).encode()
+        else:
+            s = synth.make_read_5p(
+                rng, wl[i % 64], cdna_len=int(rng.integers(2000, 4000))
+                if i % 25 == 1 else int(rng.integers(100, 700)),
+                error_rate=0.05, reverse=bool(i % 2))["seq"]
+        s = bytearray(s)
+        if i % 9 == 0 and s:
+            s[int(rng.integers(0, min(len(s), 200)))] = ord("N")
+        seqs.append(bytes(s))
+    return seqs + [b"", b"ACGT", b"N" * 80]
+
+
 def test_edge_kernel_refuses_5p(dev):
+    """The fused kernel does not take 5p: edge_scan2 runs the composed body
+    on the card (three window searches through the kernel) and its rows
+    equal edge_scan2_plain's on CPU tensors."""
     cfg = PipelineConfig()
     cfg.chemistry = "5p"
-    ct = torch.full((2 * eg.E, 4), dna.PAD, dtype=torch.int8, device=dev)
-    with pytest.raises(NotImplementedError, match="5p"):
-        edge_scan2(ct, torch.zeros(4, dtype=torch.int32, device=dev),
-                   eg.edge_params(cfg))
+    p = eg.edge_params(cfg)
+    assert "5p" in p.kernel_unsupported
+    seqs = _reads_5p()
+    codes, _, lens, _ = eg.encode_two_half(seqs, [b"I" * len(s) for s in seqs])
+    ct = torch.from_numpy(codes).to(dev).t().contiguous()
+    before = (edge_scan2.launches, eg.edge_scan2_composed.launches,
+              editdist.myers_win1.launches,
+              editdist.myers_win1_plain.launches)
+    k = edge_scan2(ct, torch.from_numpy(lens).to(dev), p)
+    torch.cuda.synchronize()
+    assert (edge_scan2.launches, eg.edge_scan2_composed.launches,
+            editdist.myers_win1.launches,
+            editdist.myers_win1_plain.launches) == (
+        before[0], before[1] + 1, before[2] + 3, before[3])
+    pl = eg.edge_scan2_plain(torch.from_numpy(codes[:, :eg.E]),
+                             torch.from_numpy(codes[:, eg.E:]),
+                             torch.from_numpy(lens), p)
+    assert torch.equal(k.cpu(), pl)
+    assert int(pl[eg.ROW_STRANDED].sum()) > 200
+
+
+@pytest.mark.parametrize("B,W,m", [(1, 110, 22), (37, 110, 22), (300, 1, 5),
+                                   (129, 64, 32), (1000, 160, 31),
+                                   (4097, 65, 19), (0, 30, 8)])
+def test_win1_kernel_matches_plain(dev, B, W, m):
+    """csrc/win1.cu against myers_win1_plain: codes 0..5, planted matches,
+    PAD tails, an all-PAD row (m, -1); B not a multiple of the block, W
+    across the staging width, m = 32."""
+    rng = np.random.default_rng(B + W)
+    pat = rng.integers(0, 4, m).astype(np.int8)
+    wins = rng.integers(0, 6, (B, W)).astype(np.int8)
+    for i in range(0, B, 3):
+        if W >= m:
+            off = int(rng.integers(0, W - m + 1))
+            wins[i, off:off + m] = pat
+    wins[::7, -(W // 3 + 1):] = dna.PAD
+    if B:
+        wins[B // 2] = dna.PAD
+    peq = editdist.build_peq(pat[None, :])
+    before = editdist.myers_win1.launches
+    ed, pos = editdist.myers_win1(torch.from_numpy(wins).to(dev), peq, m)
+    torch.cuda.synchronize()
+    assert editdist.myers_win1.launches == before + (B > 0)
+    ed_p, pos_p = editdist.myers_win1_plain(torch.from_numpy(wins), peq, m)
+    assert ed.dtype == torch.int32 and pos.dtype == torch.int32
+    assert torch.equal(ed.cpu(), ed_p) and torch.equal(pos.cpu(), pos_p)
+    if B:
+        assert (int(ed[B // 2]), int(pos[B // 2])) == (m, -1)
+
+
+def test_win1_kernel_rejects_other_inputs(dev):
+    peq = editdist.build_peq(np.zeros((1, 8), np.int8))
+    w = torch.zeros((8, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="contiguous int8"):
+        editdist.myers_win1(w.to(torch.int32), peq, 8)
+    with pytest.raises(ValueError, match="contiguous int8"):
+        editdist.myers_win1(w.t(), peq, 8)
+
+
+def test_plain_oracles_never_reach_the_kernel_on_the_card(dev, reads):
+    """edge_scan2_plain and tile_scan_plain on CUDA tensors search through
+    the plain sweep: the window-search kernel's count stays put."""
+    _, seqs = reads
+    cfg = PipelineConfig()
+    codes, _, lens, _ = eg.encode_two_half(seqs, [b"I" * len(s) for s in seqs])
+    ct = torch.from_numpy(codes).to(dev)
+    rows, _, _ = readscan.build_tiles(seqs, cfg)
+    before = (editdist.myers_win1.launches,
+              editdist.myers_win1_plain.launches)
+    for chem in ("3p", "5p"):
+        c = PipelineConfig()
+        c.chemistry = chem
+        eg.edge_scan2_plain(ct[:, :eg.E], ct[:, eg.E:],
+                            torch.from_numpy(lens).to(dev), eg.edge_params(c))
+    ts.tile_scan_plain(torch.tensor(rows, device=dev), ts.tile_params(cfg))
+    torch.cuda.synchronize()
+    assert (editdist.myers_win1.launches,
+            editdist.myers_win1_plain.launches) == before
+
+
+@pytest.mark.parametrize("chem", ["3p", "5p"])
+def test_v1_scans_cuda_match_cpu(dev, reads, chem):
+    """scan_reads and scan_internal on the card (window searches through
+    the kernel) against the same model on the CPU."""
+    cfg = PipelineConfig()
+    cfg.chemistry = chem
+    seqs = _reads_5p(200) if chem == "5p" else reads[1][:200]
+    quals = [bytes(33 + (i + j) % 40 for j in range(len(s)))
+             for i, s in enumerate(seqs)]
+    gpu = readscan.ReadScanModel(cfg, device="cuda")
+    cpu = readscan.ReadScanModel(cfg, device="cpu")
+    before = editdist.myers_win1.launches
+    got, ref = gpu.scan_reads(seqs, quals), cpu.scan_reads(seqs, quals)
+    assert editdist.myers_win1.launches == before + 3
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    codes, lens = dna.encode_batch(seqs, 5120)
+    got, ref = gpu.scan_internal(codes, lens), cpu.scan_internal(codes, lens)
+    assert editdist.myers_win1.launches == before + 5
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def test_prefilter_cuda_matches_cpu(dev, reads):
+    wl, seqs = reads
+    pats, _ = dna.encode_batch([w.encode() for w in wl], 16)
+    res = {}
+    for d in ("cuda", "cpu"):
+        model = readscan.ReadScanModel(PipelineConfig(), device=d)
+        model.prepare_search(pats, len(wl), radius=2, mode="prefilter", K=16)
+        res[d] = model.finish_search(model.scan_search_async(
+            seqs, [b"I" * len(s) for s in seqs]))[1]
+    for k in ("ed", "idx", "ed2"):
+        np.testing.assert_array_equal(res["cuda"][k], res["cpu"][k])
+    assert (res["cpu"]["ed"] <= 2).sum() > 300
 
 
 @pytest.mark.parametrize("nvalid,track_pos", [(256, True), (200, False),
