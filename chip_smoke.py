@@ -15,10 +15,20 @@ Phases (one JSON line each, with its seconds):
             chunk halves [65,536, 110], the complete-adapter windows
             [32,768, 110], the 5p TSO windows [32,768, twin] and six confirm
             windows a tile [6 x tiles, 160], plus B = 1 and B = 37 with an
-            all-PAD row. Tolerance: exact (integer outputs; mismatches must
-            be 0). Median ms of each over >= 5 timed calls (CUDA events),
-            each call on freshly mutated content. Beside each time stands
-            the kernel's bound on this card (see BOUNDS below). The composed
+            all-PAD row. The sweep runs with and without the end position
+            (the main path asks for none), also over 4,096 reads (a small
+            launch must keep the card full), on small cases that its
+            barcode slices could get wrong (SWEEP_EDGE_CASES) and its merge
+            kernel alone against `merge_sweep_partials_plain`; the band
+            aligner also on pair sets with infeasible, band-edge and empty
+            pairs and a center of length 0 (BAND_EDGE_SHAPES), with both
+            forms of its prefix maximum. Tolerance: exact (integer outputs;
+            mismatches must be 0). Median ms of each over >= 5 timed calls
+            (CUDA events), each call on freshly mutated content;
+            `device_ms` is the kernel alone (torch.profiler; null when the
+            trace holds no kernel), `burst_ms` the mean of back-to-back
+            calls. Beside each time stands the kernel's bound on this card
+            (see BOUNDS below); a kernel faster than its bound ends the run. The composed
             5p edge body (torch ops + three window searches) is timed at
             32,768 reads beside the fused 3p kernel, with a sync-timed split
             of one call by scan op.
@@ -66,6 +76,9 @@ Phases (one JSON line each, with its seconds):
   consensus_parity  the same consensus on a 2,048-molecule subset on `cuda`
             and on `cpu`: output fastq and stats byte-identical.
 
+`python3 chip_smoke.py --kernels-only` stops after the `kernels` phase (for
+iterating on a kernel; it prints no ok line).
+
 Then: a short {"summary": ...} line (the end-to-end rates, the consensus
 split and the script's seconds), the {"kernels": [...]} line, the nvidia-smi
 line, and last
@@ -74,8 +87,12 @@ line, and last
 BOUNDS. `bound_ms` is the least time this card could take for a kernel's
 work at this run's inputs: the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its int32 operations over
-132 SMs x 64 lanes x the card's maximum SM clock (nvidia-smi
-clocks.max.sm). Operation counts, from the kernels' own arithmetic:
+the card's SM count (read from the device; 132 on an H100 SXM) x 128 lanes
+x the card's maximum SM clock (nvidia-smi clocks.max.sm): what an SM's four
+schedulers can dispatch, which two integer pipes of 64 lanes each (ALU and
+FMA/IMAD) can fill together. Counting one pipe (64 lanes an SM) is no
+bound: a kernel of this package ran at 1.6 times it.
+Operation counts, from the kernels' own arithmetic:
   Myers column (csrc/myers.cuh myers_step): 18, the count the JAX
     package's bench.py uses for the same step (the step's 21 C operators
     less the three NOTs, which fold into three-input logic operations).
@@ -113,6 +130,7 @@ READS_PER_FILE = 32_768
 N_WHITELIST = 65_536
 N_CELLS = 8_192
 SWEEP_LISTS = (8_192, 49_152)
+SWEEP_SMALL_B = 4_096
 N_PARITY = 4_096
 TIMED_CALLS = 5
 SEED = 20_240_601
@@ -121,13 +139,22 @@ BAND_PAIRS = 8_192
 BAND_SHAPES = ((512, 32, BAND_PAIRS, 300, 490),      # Lc, W, pairs, truth
                (1024, 64, BAND_PAIRS, 520, 900),     # lengths lo, hi
                (2048, 64, 256, 1100, 1900))
+BAND_EDGE_SHAPES = ((1, 200, 256, 32), (31, 230, 256, 32),   # pairs, read
+                    (203, 480, 512, 32), (57, 900, 1024, 64),  # length, Lc, W
+                    (7, 1900, 2048, 64))
 CONTROL_SEED = 7
 CONTROL_MAX_ED = 1
 PREFILTER_RADIUS = 2
 N_MOLECULES = 32_768
 N_CONS_PARITY = 2_048
 HBM_BYTES_PER_S = 3.35e12
-INT32_LANES = 132 * 64
+# int32 lanes a clock: an SM's four schedulers dispatch one warp instruction
+# (32 lanes) a clock each, and integer work runs on two pipes side by side
+# (the ALU pipe: logic, shifts, min/max, LEA; the FMA pipe: IMAD, which the
+# compiler also uses for adds, constant shifts and moves), each 16 lanes a
+# scheduler. 64 lanes an SM counted one pipe only, and the redesigned sweep
+# ran at 158-171% of that "bound".
+INT32_LANES_PER_SM = 128
 MYERS_OPS = 18
 BAND_CELL_OPS = 13
 
@@ -236,11 +263,12 @@ def compare(name, fn_k, fn_p, variants):
             "plain_ms": med["p"], "calls": len(variants)}
 
 
-def bound(n_bytes: int, n_ops: int, sm_hz: float) -> dict:
+def bound(n_bytes: int, n_ops: int, int32_hz: float) -> dict:
     """The least time (ms) this card could take for n_bytes moved and
-    n_ops int32 operations, and which of the two bounds it."""
+    n_ops int32 operations at int32_hz of them a second (SMs x
+    INT32_LANES_PER_SM x the SM clock), and which of the two bounds it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / (INT32_LANES * sm_hz) * 1e3
+    t_ops = n_ops / int32_hz * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(n_bytes), "operations": int(n_ops)}
@@ -277,6 +305,139 @@ def band_pairs(rng, Lc, W, n_pairs, lo, hi, dev):
     first = np.searchsorted(mids, np.arange(len(mols)))
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
                  (reads, rlens, mids, center[first], clens[first]))
+
+
+# Small shapes that the sweep's slices make possible to get wrong:
+# name: (B, N, nvalid, W, m, slices, duplicate barcodes (dst, src))
+SWEEP_EDGE_CASES = {
+    "ragged_last_slice": (300, 1001, 1001, 22, 16, 7, ((1000, 3), (600, 3))),
+    "nvalid_inside_slice": (300, 1024, 700, 22, 16, 4, ((650, 10),)),
+    "nvalid_one": (300, 1024, 1, 22, 16, 4, ()),
+    "nvalid_zero": (64, 256, 0, 22, 16, 4, ()),
+    "same_barcode_in_two_slices": (300, 1024, 1024, 22, 16, 8,
+                                   ((900, 5), (300, 5), (513, 512))),
+    "fewer_barcodes_than_slices": (300, 5, 5, 22, 16, 64, ((4, 0),)),
+    "one_read": (1, 777, 777, 22, 16, 5, ()),
+    "b37": (37, 777, 770, 22, 16, 5, ((700, 1),)),
+    "narrow_window": (200, 640, 640, 17, 16, 3, ((639, 0),)),
+    "w16": (200, 640, 640, 16, 12, 3, ()),
+    "m31_w32": (200, 640, 640, 32, 31, 6, ((400, 2),)),
+    "slices_chosen_by_the_wrapper": (4096, 2048, 2048, 22, 16, None,
+                                     ((2000, 9),)),
+    "one_slice": (600, 300, 300, 22, 16, 1, ((299, 0),)),
+}
+
+
+def sweep_edge_case(name, dev):
+    """The inputs of one SWEEP_EDGE_CASES entry on `dev`: windows [W, B]
+    uint8 with planted barcodes (one substitution in every fourth, N, PAD
+    tails, an all-PAD read) and the Peq [4, N] of N random barcodes with
+    the case's duplicates. Returns (wins_tm, peq, nvalid, m, slices,
+    whether the valid list holds a duplicate, i.e. ties must show)."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.ops import bcsearch, editdist
+    B, N, nvalid, W, m, slices, dup = SWEEP_EDGE_CASES[name]
+    rng = np.random.default_rng(SEED + len(name))
+    pats = rng.integers(0, 4, size=(N, m)).astype(np.int8)
+    for dst, src in dup:
+        pats[dst] = pats[src]
+    wins = rng.integers(0, 4, size=(B, W)).astype(np.uint8)
+    for i in range(B):
+        j = dup[i % len(dup)][1] if dup and i % 3 == 0 else \
+            int(rng.integers(0, N))
+        off = int(rng.integers(0, W - m + 1))
+        wins[i, off:off + m] = pats[j]
+        if i % 4 == 1:
+            wins[i, off + m // 2] = (wins[i, off + m // 2] + 1) % 4
+    wins[::5, W // 3] = 4
+    wins[::7, -(W // 5 + 1):] = 5
+    wins[B - 1] = 5
+    return (torch.from_numpy(np.ascontiguousarray(wins.T)).to(dev),
+            bcsearch.peq_device(editdist.build_peq(pats), dev), nvalid, m,
+            slices, bool(dup) and nvalid > max(d for d, _ in dup))
+
+
+def merge_edge_partials(dev):
+    """Partials [6, 4, 1000] int32 for the merge kernel alone: ties between
+    slices, a slice of masked barcodes only, (BIG, _, BIG, -1), in first,
+    middle and last place, and reads whose every slice is masked."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.ops import bcsearch
+    rng = np.random.default_rng(SEED + 77)
+    S, B = 6, 1000
+    parts = np.empty((S, 4, B), dtype=np.int32)
+    parts[:, 0] = rng.integers(0, 4, (S, B))
+    parts[:, 1] = np.arange(S)[:, None] * 100 + rng.integers(0, 100, (S, B))
+    parts[:, 2] = parts[:, 0] + rng.integers(0, 3, (S, B))
+    parts[:, 3] = rng.integers(-1, 22, (S, B))
+    for sl, cols in ((0, slice(0, 300)), (3, slice(200, 500)),
+                     (5, slice(400, 700)), (slice(None), slice(900, B))):
+        parts[sl, 0, cols] = parts[sl, 2, cols] = bcsearch.BIG
+        parts[sl, 3, cols] = -1
+    parts[0, 1, 900:] = 0
+    return torch.from_numpy(parts).to(dev)
+
+
+def sweep_edge_cases(dev) -> dict:
+    """The sweep kernel against its plain version on SWEEP_EDGE_CASES (both
+    `track_pos` values), and the merge kernel alone against
+    `merge_sweep_partials_plain`: {case: mismatches}."""
+    from sicelore_tpu_torch.ops import bcsearch
+    out = {}
+    for name in SWEEP_EDGE_CASES:
+        wt, peq, nvalid, m, slices, ties = sweep_edge_case(name, dev)
+        bad = 0
+        for track in (True, False):
+            k = bcsearch._bc_sweep_sliced(wt, peq, nvalid, m, track, slices)
+            pl = bcsearch.bc_sweep_plain(wt, peq, nvalid, m, track)
+            bad += int((k != pl).sum())
+            if ties and not int((pl[0] == pl[2]).sum()):
+                raise SystemExit(f"sweep case {name}: no tie in the data")
+        out[name] = bad
+    parts = merge_edge_partials(dev)
+    out["merge_kernel"] = int((bcsearch.merge_sweep_partials(parts)
+                               != bcsearch.merge_sweep_partials_plain(parts)
+                               ).sum())
+    return out
+
+
+def band_edge_pairs(rng, n_pairs, length, Lc, W, dev):
+    """`band_align` arguments for n_pairs pairs (any count) with reads that
+    run out of the band (infeasible), a long insertion answered by a long
+    deletion (the path hugs the band's edge, where a pair may freeze),
+    empty reads and one molecule whose center length is 0."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.utils import synth
+    mols, n = [], 0
+    while n < n_pairs + 6:
+        truth = synth.random_seq(rng, int(rng.integers(length // 2, length)))
+        depth = int(rng.integers(2, 7))
+        reads = [synth.mutate(rng, truth, 0.05).encode()
+                 for _ in range(depth)]
+        kind = len(mols) % 5
+        if kind == 1:
+            reads[1] = truth[:len(truth) - W].encode()
+        elif kind == 2:
+            blk = synth.random_seq(rng, W // 2 + 6)
+            reads[1] = (truth[:40] + blk + truth[40:90]
+                        + truth[90 + len(blk):]).encode()
+        elif kind == 3:
+            reads[-1] = b""
+        mols.append([truth.encode()] + reads)
+        n += depth
+    center, clens, reads, rlens, mids = synth.pair_arrays(mols, Lc, W)
+    first = np.searchsorted(mids, np.arange(len(mols)))
+    clens_mol = clens[first].copy()
+    clens_mol[min(2, len(mols) - 1)] = 0
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+                 (reads[:n_pairs], rlens[:n_pairs], mids[:n_pairs],
+                  center[first], clens_mol))
 
 
 def consensus_molecules(rng, n):
@@ -457,24 +618,49 @@ def scanfastq_split(pipe, inputs, out_dir) -> dict:
             "seconds": {k: round(v, 3) for k, v in secs.items()}}
 
 
-def kernel_device_ms(fn, variants, kernel_name):
+def kernel_device_ms(fn, variants, kernel_name, attempts=3):
     """Mean device milliseconds of the CUDA kernel whose name contains
     `kernel_name` over fn(v) for each variant, from torch.profiler's trace
-    (no host time in it); None when the trace shows no such kernel."""
+    (no host time in it). A trace sometimes comes back without any kernel
+    record: up to `attempts` traces are taken, then None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for v in variants:
-            fn(v)
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    us = n = 0
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total",
-                    getattr(ev, "cuda_time_total", 0))
-        if kernel_name in ev.key and t:
-            us, n = us + t, n + ev.count
-    return us / n / 1e3 if n else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for v in variants:
+                fn(v)
+            torch.cuda.synchronize()
+        us = n = 0
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0))
+            if kernel_name in ev.key and t:
+                us, n = us + t, n + ev.count
+        if n:
+            return us / n / 1e3
+        print(f"kernel_device_ms: no device time for {kernel_name!r}; the "
+              f"trace holds {sorted(ev.key for ev in prof.key_averages())}",
+              file=sys.stderr)
+    return None
+
+
+def burst_ms(fn, variants):
+    """Mean ms of fn(v) over the variants launched back to back between two
+    CUDA events: the wrappers' host time hides behind the kernels, so for a
+    kernel longer than its wrapper's Python this is the kernel's time."""
+    import torch
+    fn(variants[0])
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    for v in variants:
+        fn(v)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / len(variants)
 
 
 def write_subset(src, dst, n):
@@ -586,6 +772,8 @@ def _run(pool, wl, cells, work, dev) -> int:
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_hz = sms * INT32_LANES_PER_SM * sm_hz
     nvcc = _build.find_nvcc()
     nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True,
                               text=True, timeout=60).stdout.strip(
@@ -594,6 +782,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     for stem in ("edgescan", "bcsweep", "tilescan", "bandalign", "win1"):
         _build.load(stem)
     emit({"phase": "env", "nvidia_smi": smi, "max_sm_mhz": sm_hz / 1e6,
+          "sms": sms,
           "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": nvcc_ver,
           "gpu": torch.cuda.get_device_name(0),
@@ -646,7 +835,10 @@ def _run(pool, wl, cells, work, dev) -> int:
         + ep.twin * len(scan.bail_pairs(ep.c1, ep.c2)) * 4
         + (eg.E + ep.win_p + ep.k) * 6)
     results["edgescan"].update(bound(nbytes(codes_tm, lens_d, meta),
-                                     edge_ops, sm_hz))
+                                     edge_ops, int32_hz))
+    results["edgescan"]["device_ms"] = kernel_device_ms(
+        lambda c: edge_scan2(c, lens_d, ep), variants[1:],
+        "edge_scan_kernel")
     wins = meta[eg.ROW_BC0:].to(torch.uint8).contiguous()
 
     def mutate_wins(w):
@@ -660,19 +852,81 @@ def _run(pool, wl, cells, work, dev) -> int:
     m = cfg.barcodes.cell_bc_length
     cell_set = set(cells)
     others = [w for w in wl if w not in cell_set]
+    n_small = SWEEP_SMALL_B
+    wsmall = [w[:, :n_small].contiguous() for w in wvars]
     for n_bc in SWEEP_LISTS:
         pats, _ = dna.encode_batch([s.encode() for s in
                                     (cells + others)[:n_bc]], m)
         peq = bcsearch.peq_device(editdist.build_peq(pats), dev)
-        results[f"bcsweep_{n_bc}"] = compare(
+        key = f"bcsweep_{n_bc}"
+        results[key] = compare(
             f"bcsweep[{n_bc}]",
             lambda w: bcsearch.bc_sweep(w, peq, n_bc, m, track_pos=True),
             lambda w: bcsearch.bc_sweep_plain(w, peq, n_bc, m,
                                               track_pos=True),
             wvars)
-        results[f"bcsweep_{n_bc}"].update(bound(
-            nbytes(wins, peq) + 4 * B * 4,
-            B * n_bc * wins.shape[0] * MYERS_OPS, sm_hz))
+        sweep_ops = B * n_bc * wins.shape[0] * MYERS_OPS
+        results[key].update(bound(nbytes(wins, peq) + 4 * B * 4, sweep_ops,
+                                  int32_hz))
+        S, L = bcsearch.sweep_slices(
+            B, n_bc, n_bc, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
+        results[key].update({"slices": S, "slice_barcodes": L})
+        # the main path's call: no end position. The plain version runs at
+        # the small list only; at the large one the rows are held against
+        # the (verified) kernel rows with the position, whose first three
+        # are the same function.
+        key_np = f"bcsweep_{n_bc}_nopos"
+        if n_bc == SWEEP_LISTS[0]:
+            results[key_np] = compare(
+                f"bcsweep[{n_bc}, no pos]",
+                lambda w: bcsearch.bc_sweep(w, peq, n_bc, m, track_pos=False),
+                lambda w: bcsearch.bc_sweep_plain(w, peq, n_bc, m,
+                                                  track_pos=False),
+                wvars)
+        else:
+            ms_np, outs = timed(
+                lambda w: bcsearch.bc_sweep(w, peq, n_bc, m, track_pos=False),
+                wvars, torch.cuda.synchronize)
+            bad = 0
+            for w, o in zip(wvars, outs):
+                ref = bcsearch.bc_sweep(w, peq, n_bc, m, track_pos=True)
+                bad += int((o[:3] != ref[:3]).sum() + (o[3] != -1).sum())
+            results[key_np] = {"mismatches": bad, "max_abs_err": bad and 1,
+                               "ms": ms_np, "plain_ms": None,
+                               "calls": len(wvars),
+                               "held_against": "kernel rows with track_pos"}
+        results[key_np].update(bound(nbytes(wins, peq) + 4 * B * 4,
+                                     sweep_ops, int32_hz))
+        for tag, track in (("", True), ("_nopos", False)):
+            results[f"bcsweep_{n_bc}{tag}"]["device_ms"] = kernel_device_ms(
+                lambda w: bcsearch.bc_sweep(w, peq, n_bc, m, track_pos=track),
+                wvars, "bc_sweep_kernel")
+        results[key]["merge_device_ms"] = kernel_device_ms(
+            lambda w: bcsearch.bc_sweep(w, peq, n_bc, m, track_pos=True),
+            wvars, "bc_merge_kernel")
+        if n_bc == SWEEP_LISTS[0]:
+            # a small launch (a split rescan's size): the grid's slices must
+            # keep the card full
+            for tag, track in (("", True), ("_nopos", False)):
+                k4 = f"bcsweep_{n_bc}_b{n_small}{tag}"
+                results[k4] = compare(
+                    k4,
+                    lambda w: bcsearch.bc_sweep(w, peq, n_bc, m,
+                                                track_pos=track),
+                    lambda w: bcsearch.bc_sweep_plain(w, peq, n_bc, m,
+                                                      track_pos=track),
+                    wsmall)
+                results[k4].update(bound(
+                    nbytes(wsmall[0], peq) + 4 * n_small * 4,
+                    n_small * n_bc * wins.shape[0] * MYERS_OPS, int32_hz))
+                results[k4]["device_ms"] = kernel_device_ms(
+                    lambda w: bcsearch.bc_sweep(w, peq, n_bc, m,
+                                                track_pos=track),
+                    wsmall, "bc_sweep_kernel")
+    edge_cases = sweep_edge_cases(dev)
+    results["bcsweep_edge_cases"] = {
+        "mismatches": sum(edge_cases.values()), "cases": edge_cases}
     rows, _, _ = readscan.build_tiles(chunk.seqs, cfg)
     rows_d = torch.tensor(rows, device=dev)
     tp = ts.tile_params(cfg)
@@ -685,13 +939,16 @@ def _run(pool, wl, cells, work, dev) -> int:
             0, 4, (T,), device=dev, generator=g, dtype=torch.uint8) * 17
         return r
 
+    tvars = [rows_d] + [mutate_tiles(rows_d) for _ in range(TIMED_CALLS)]
     results["tilescan"] = compare(
         "tilescan", lambda r: ts.tile_scan(r, tp),
-        lambda r: ts.tile_scan_plain(r, tp),
-        [rows_d] + [mutate_tiles(rows_d) for _ in range(TIMED_CALLS)])
+        lambda r: ts.tile_scan_plain(r, tp), tvars)
+    results["tilescan"]["device_ms"] = kernel_device_ms(
+        lambda r: ts.tile_scan(r, tp), tvars[1:], "tile_scan_kernel")
+    del tvars
     n_tiles = int(rows.shape[0])
     results["tilescan"].update(bound(
-        nbytes(rows_d) + 3 * n_tiles * 4, n_tiles * 2 * ts.TILE * 6, sm_hz))
+        nbytes(rows_d) + 3 * n_tiles * 4, n_tiles * 2 * ts.TILE * 6, int32_hz))
 
     # the window search at the shapes its paths give it: the 5p composed
     # edge body's three searches over one chunk, the confirm windows of
@@ -745,7 +1002,7 @@ def _run(pool, wl, cells, work, dev) -> int:
             [w] + [mutate_rows(w) for _ in range(TIMED_CALLS)])
         nw, ww = w.shape
         results[key].update(bound(nw * ww + 2 * nw * 4,
-                                  nw * ww * MYERS_OPS, sm_hz))
+                                  nw * ww * MYERS_OPS, int32_hz))
         results[key].update({"windows": nw, "columns": ww, "m": m1})
         results[key]["device_ms"] = kernel_device_ms(
             lambda x: editdist.myers_win1(x, peq1, m1),
@@ -786,27 +1043,62 @@ def _run(pool, wl, cells, work, dev) -> int:
             return r
 
         key = f"bandalign_{Lc}_{W}"
+        bvars = [reads_d] + [mutate_pairs(reads_d)
+                             for _ in range(TIMED_CALLS)]
         results[key] = compare(
             key,
             lambda r: poa_cuda.band_align(r, rl_d, mids_d, cmol_d, clm_d,
                                           Lc, W),
             lambda r: poa_cuda.band_align_plain(r, rl_d, mids_d, cmol_d,
                                                 clm_d, Lc, W),
-            [reads_d] + [mutate_pairs(reads_d) for _ in range(TIMED_CALLS)])
+            bvars)
         band_cells = int(clm_d[mids_d.long()].sum()) * W
         results[key].update(bound(
             nbytes(reads_d, rl_d, mids_d, cmol_d, clm_d)
             + P * (Lc + 1) * (1 + 4 * poa_cuda.K_INS) + 4 * P,
-            band_cells * BAND_CELL_OPS, sm_hz))
+            band_cells * BAND_CELL_OPS, int32_hz))
         results[key].update({"pairs": P, "band_cells": band_cells})
-        del reads_d, rl_d, mids_d, cmol_d, clm_d
+        results[key]["device_ms"] = kernel_device_ms(
+            lambda r: poa_cuda.band_align(r, rl_d, mids_d, cmol_d, clm_d,
+                                          Lc, W),
+            bvars[1:], "band_align_kernel")
+        results[key]["burst_ms"] = burst_ms(
+            lambda r: poa_cuda.band_align(r, rl_d, mids_d, cmol_d, clm_d,
+                                          Lc, W), bvars[1:])
+        del reads_d, rl_d, mids_d, cmol_d, clm_d, bvars
         torch.cuda.empty_cache()
+    # pairs the regrouped kernel could get wrong: P not a multiple of the
+    # pairs a warp holds, infeasible pairs, paths along the band's edge,
+    # empty reads, a center of length 0
+    band_edges = {}
+    for n_pairs, length, Lc, W in BAND_EDGE_SHAPES:
+        args = band_edge_pairs(rng, n_pairs, length, Lc, W, dev)
+        ref = poa_cuda.band_align_plain(*args, Lc, W)
+        got = poa_cuda.band_align(*args, Lc, W)
+        bad = sum(int((a != b).sum()) for a, b in zip(got, ref))
+        n_feas = int(ref[2].sum())
+        if n_pairs > 30 and not 0 < n_feas < n_pairs:
+            raise SystemExit(f"band edge pairs {n_pairs}/{Lc}/{W}: "
+                             f"{n_feas} feasible, want some and not all")
+        band_edges[f"{n_pairs}_{Lc}_{W}"] = {"mismatches": bad,
+                                             "feasible": n_feas}
+    results["bandalign_edge_cases"] = {
+        "mismatches": sum(v["mismatches"] for v in band_edges.values()),
+        "cases": band_edges}
     emit({"phase": "kernels", "reads": B, "tiles": n_tiles,
           "tolerance": "exact", "results": results,
           "s": round(time.time() - t0, 2)})
     bad = {k: v["mismatches"] for k, v in results.items() if v["mismatches"]}
     if bad:
         raise SystemExit(f"kernel/plain mismatches: {bad}")
+    over = {k: v["bound_ms"] / t for k, v in results.items()
+            for t in (v.get("device_ms"), v.get("burst_ms"))
+            if t and v.get("bound_ms") and v["bound_ms"] > t}
+    if over:
+        raise SystemExit(f"a kernel beat its bound (a fault of the "
+                         f"measurement): {over}")
+    if "--kernels-only" in sys.argv[1:]:
+        return 0        # a kernel's author iterating: no path, no ok line
 
     # ---- the main path: scanfastq on cuda ----
     counters = (edge_scan2, bcsearch.bc_sweep, ts.tile_scan,
@@ -1114,24 +1406,49 @@ def _run(pool, wl, cells, work, dev) -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": None}
+        if name in ("edgescan", "tilescan"):
+            entry["device_ms"] = r["device_ms"]
         if name == "bcsweep":
-            big = results[f"bcsweep_{SWEEP_LISTS[1]}"]
+            # ms: the wrapper's call with the end position; *_nopos: the
+            # main path's call; device_ms: the sweep kernel alone
             entry.update({"n_barcodes": SWEEP_LISTS[0],
-                          f"ms_n{SWEEP_LISTS[1]}": big["ms"],
-                          f"plain_ms_n{SWEEP_LISTS[1]}": big["plain_ms"],
-                          f"bound_ms_n{SWEEP_LISTS[1]}": big["bound_ms"],
-                          "max_abs_err": max(r["max_abs_err"],
-                                             big["max_abs_err"])})
+                          "slices": r["slices"],
+                          "device_ms": r["device_ms"],
+                          "merge_device_ms": r["merge_device_ms"]})
+            for suffix, key2 in (
+                    ("_nopos", f"bcsweep_{SWEEP_LISTS[0]}_nopos"),
+                    (f"_n{SWEEP_LISTS[1]}", f"bcsweep_{SWEEP_LISTS[1]}"),
+                    (f"_n{SWEEP_LISTS[1]}_nopos",
+                     f"bcsweep_{SWEEP_LISTS[1]}_nopos"),
+                    (f"_b{SWEEP_SMALL_B}",
+                     f"bcsweep_{SWEEP_LISTS[0]}_b{SWEEP_SMALL_B}"),
+                    (f"_b{SWEEP_SMALL_B}_nopos",
+                     f"bcsweep_{SWEEP_LISTS[0]}_b{SWEEP_SMALL_B}_nopos")):
+                o = results[key2]
+                entry.update({f"ms{suffix}": o["ms"],
+                              f"device_ms{suffix}": o["device_ms"],
+                              f"plain_ms{suffix}": o["plain_ms"],
+                              f"bound_ms{suffix}": o["bound_ms"]})
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           o["max_abs_err"])
+            entry["edge_case_mismatches"] = \
+                results["bcsweep_edge_cases"]["mismatches"]
         if name == "bandalign":
-            entry.update({"Lc": 512, "W": 32, "pairs": r["pairs"]})
+            entry.update({"Lc": 512, "W": 32, "pairs": r["pairs"],
+                          "device_ms": r["device_ms"],
+                          "burst_ms": r["burst_ms"]})
             for Lc, W, _, _, _ in BAND_SHAPES[1:]:
                 o = results[f"bandalign_{Lc}_{W}"]
                 entry.update({f"ms_{Lc}_{W}": o["ms"],
+                              f"device_ms_{Lc}_{W}": o["device_ms"],
+                              f"burst_ms_{Lc}_{W}": o["burst_ms"],
                               f"plain_ms_{Lc}_{W}": o["plain_ms"],
                               f"bound_ms_{Lc}_{W}": o["bound_ms"],
                               f"pairs_{Lc}_{W}": o["pairs"]})
                 entry["max_abs_err"] = max(entry["max_abs_err"],
                                            o["max_abs_err"])
+            entry["edge_case_mismatches"] = \
+                results["bandalign_edge_cases"]["mismatches"]
         if name == "win1":
             entry.update({"windows": r["windows"], "columns": r["columns"],
                           "device_ms": r["device_ms"],

@@ -1,5 +1,6 @@
-"""Cell-barcode whitelist sweep: CUDA kernel (csrc/bcsweep.cu), its plain
-PyTorch version and the `bc_search` host wrapper.
+"""Cell-barcode whitelist sweep: CUDA kernels (csrc/bcsweep.cu: the sweep
+over a reads x barcode-slices grid and the merge of the slices), their plain
+PyTorch versions and the `bc_search` host wrapper.
 
 Port of `sicelore_tpu/ops/bcsearch.py`: every read's BC window against every
 used barcode (Myers semi-global ED), reduced to [4, B] int32 rows best_ed,
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sicelore_tpu_torch import device as _device
 from sicelore_tpu_torch.ops import _build, editdist
 
 BIG = 2**30  # masked lanes / no second barcode
@@ -51,30 +53,112 @@ def bc_sweep_plain(wins_tm: torch.Tensor, peq: torch.Tensor, nvalid: int,
 bc_sweep_plain.launches = 0
 
 
+def merge_sweep_partials_plain(parts: torch.Tensor) -> torch.Tensor:
+    """Fold per-slice sweep partials [S, 4, B] (rows best_ed, best_idx with
+    global barcode indices, second_ed, end position) into [4, B], slices in
+    ascending order, by the rule of the sweep kernel's merge (the JAX
+    kernel's between its barcode tiles): the earlier slice keeps a tie; the
+    second best is the least of the losing best and both second bests. The
+    oracle of the merge kernel; never on the main path."""
+    b1, i1, b2, p1 = parts[0].unbind(0)
+    for s in range(1, parts.shape[0]):
+        nb1, ni1, nb2, np1 = parts[s].unbind(0)
+        take = nb1 < b1
+        b2 = torch.minimum(torch.maximum(b1, nb1), torch.minimum(b2, nb2))
+        i1 = torch.where(take, ni1, i1)
+        p1 = torch.where(take, np1, p1)
+        b1 = torch.minimum(b1, nb1)
+    return torch.stack([b1, i1, b2, p1])
+
+
+def merge_sweep_partials(parts: torch.Tensor) -> torch.Tensor:
+    """`merge_sweep_partials_plain` for CPU tensors; for CUDA tensors the
+    merge kernel of csrc/bcsweep.cu alone (the sweep launches it itself)."""
+    if parts.device.type == "cpu":
+        return merge_sweep_partials_plain(parts)
+    if (parts.dtype != torch.int32 or parts.dim() != 3 or parts.shape[1] != 4
+            or parts.shape[0] < 1 or not parts.is_contiguous()):
+        raise ValueError("parts must be contiguous int32 [S >= 1, 4, B]")
+    S, _, B = parts.shape
+    out = torch.empty((4, B), dtype=torch.int32, device=parts.device)
+    fn = _build.bind("bcsweep", "bcsweep_merge_launch", 2, 2)
+    _build.check(fn(parts.data_ptr(), out.data_ptr(), S, B,
+                    _build.stream_handle(parts.device)), "bcsweep merge")
+    return out
+
+
+SWEEP_THREADS = 128      # reads a block (csrc/bcsweep.cu THREADS)
+SWEEP_CHAINS = 4         # barcodes a thread at a time (CH)
+SWEEP_BLOCKS_PER_SM = 24  # blocks a launch aims at: ~3 waves of 8 an SM
+SWEEP_MIN_SLICE = 128    # fewer barcodes a block are not worth a slice
+
+
+def _slice_grid(nvalid: int, N: int, slices: int) -> tuple[int, int]:
+    """(S, L) for a wanted slice count: it is cut to what the list can fill,
+    L is a multiple of 4, the last slice may be short and none is empty."""
+    nv = min(max(int(nvalid), 0), N)
+    S = max(1, min(int(slices), -(-nv // SWEEP_CHAINS), 65535))
+    L = -(-max(nv, 1) // S)
+    L = -(-L // SWEEP_CHAINS) * SWEEP_CHAINS
+    return max(1, -(-nv // L)), L
+
+
+def sweep_slices(B: int, nvalid: int, N: int, sms: int) -> tuple[int, int]:
+    """(S, L): the sweep's grid is ceil(B / 128) read blocks x S slices of L
+    barcodes. S is chosen so that the launch holds ~24 blocks an SM whatever
+    B is, and is 1 where the reads alone give that many."""
+    nv = min(max(int(nvalid), 0), N)
+    read_blocks = -(-B // SWEEP_THREADS)
+    return _slice_grid(
+        nvalid, N, min(-(-SWEEP_BLOCKS_PER_SM * sms // max(read_blocks, 1)),
+                       nv // SWEEP_MIN_SLICE))
+
+
+def _bc_sweep_sliced(wins_tm: torch.Tensor, peq: torch.Tensor, nvalid: int,
+                     m: int, track_pos: bool, slices: int | None
+                     ) -> torch.Tensor:
+    """`bc_sweep` on CUDA tensors with the number of barcode slices of the
+    kernel's grid asked for (None: chosen from B, N and the card). The result
+    does not depend on it, which is what the kernel's tests hold."""
+    W, B = wins_tm.shape
+    if wins_tm.dtype != torch.uint8 or not wins_tm.is_contiguous():
+        raise ValueError("wins_tm must be contiguous uint8 [W, B]")
+    if (peq.dtype != torch.int32 or peq.dim() != 2 or peq.shape[0] != 4
+            or peq.shape[1] < 1 or peq.device != wins_tm.device
+            or not peq.is_contiguous()):
+        raise ValueError("peq must be contiguous int32 [4, N >= 1] on wins' "
+                         "device")
+    if not 1 <= W <= 32 or not 1 <= m <= 31:
+        raise ValueError(f"sweep kernel takes 1 <= W <= 32 and 1 <= m <= 31 "
+                         f"(got W={W}, m={m})")
+    dev = wins_tm.device
+    out = torch.empty((4, B), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    N = peq.shape[1]
+    if slices is None:
+        S, L = sweep_slices(B, nvalid, N, torch.cuda.get_device_properties(dev)
+                            .multi_processor_count)
+    else:
+        S, L = _slice_grid(nvalid, N, slices)
+    scratch = (torch.empty((S, 4, B), dtype=torch.int32, device=dev)
+               if S > 1 else out)
+    fn = _build.bind("bcsweep", "bcsweep_launch", 4, 8)
+    _build.check(fn(wins_tm.data_ptr(), peq.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), B, W, N, int(nvalid), m,
+                    int(track_pos), S, L, _build.stream_handle(dev)),
+                 "bcsweep")
+    bc_sweep.launches += 1
+    return out
+
+
 def bc_sweep(wins_tm: torch.Tensor, peq: torch.Tensor, nvalid: int, m: int,
              track_pos: bool = True) -> torch.Tensor:
     """Whitelist sweep of text-major BC windows wins_tm [W, B] uint8 against
     peq [4, N] int32 (uint32 Peq bit patterns) -> [4, B] int32 rows."""
     if wins_tm.device.type == "cpu":
         return bc_sweep_plain(wins_tm, peq, nvalid, m, track_pos)
-    W, B = wins_tm.shape
-    if wins_tm.dtype != torch.uint8 or not wins_tm.is_contiguous():
-        raise ValueError("wins_tm must be contiguous uint8 [W, B]")
-    if (peq.dtype != torch.int32 or peq.dim() != 2 or peq.shape[0] != 4
-            or peq.device != wins_tm.device or not peq.is_contiguous()):
-        raise ValueError("peq must be contiguous int32 [4, N] on wins' device")
-    if W > 32 or not 1 <= m <= 31:
-        raise ValueError(f"sweep kernel takes W <= 32 and m <= 31 "
-                         f"(got W={W}, m={m})")
-    out = torch.empty((4, B), dtype=torch.int32, device=wins_tm.device)
-    if B == 0:
-        return out
-    fn = _build.bind("bcsweep", "bcsweep_launch", 3, 6)
-    _build.check(fn(wins_tm.data_ptr(), peq.data_ptr(), out.data_ptr(),
-                    B, W, peq.shape[1], int(nvalid), m, int(track_pos),
-                    _build.stream_handle(wins_tm.device)), "bcsweep")
-    bc_sweep.launches += 1
-    return out
+    return _bc_sweep_sliced(wins_tm, peq, nvalid, m, track_pos, None)
 
 
 bc_sweep.launches = 0
@@ -87,13 +171,15 @@ def peq_device(peq: np.ndarray, device) -> torch.Tensor:
 
 
 def bc_search(windows: np.ndarray, patterns_peq: np.ndarray, n_patterns: int,
-              m: int, device="cpu"):
+              m: int, device="cuda"):
     """Host wrapper: windows [B, W] codes against the first n_patterns
-    columns of patterns_peq [4, N] uint32.
+    columns of patterns_peq [4, N] uint32, on `device` ("cuda" without a
+    GPU raises).
 
     Returns dict of int64 numpy arrays (len B): ed, idx, ed2, end_pos.
     idx/end_pos are valid only where ed < m; ed2 == editdist.INT_MAX when no
     second candidate exists (mirrors the reference's ed_sec=INTMAX)."""
+    device = _device.resolve(device)
     wins = torch.from_numpy(np.ascontiguousarray(
         np.asarray(windows).T, dtype=np.uint8)).to(device)
     peq = peq_device(patterns_peq[:, :max(n_patterns, 1)], device)

@@ -84,7 +84,7 @@ def test_bc_search_matches_jax_and_masks_nvalid():
     peq = editdist.build_peq(pats)
     for n_valid in (100, 60):
         ref = jax_bc.bc_search(wins, peq, n_valid, m, use_pallas=False)
-        got = bcsearch.bc_search(wins, peq, n_valid, m)
+        got = bcsearch.bc_search(wins, peq, n_valid, m, device="cpu")
         for k in ("ed", "idx", "ed2", "end_pos"):
             np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     assert (got["idx"] < 60).all()
@@ -95,7 +95,7 @@ def test_bc_search_second_best_sentinel():
     pats = np.zeros((1, 16), dtype=np.int8)
     wins = np.zeros((4, 20), dtype=np.int8)
     peq = editdist.build_peq(pats)
-    got = bcsearch.bc_search(wins, peq, 1, 16)
+    got = bcsearch.bc_search(wins, peq, 1, 16, device="cpu")
     ref = jax_bc.bc_search(wins, peq, 1, 16, use_pallas=False)
     assert (got["ed2"] == editdist.INT_MAX).all() and (got["ed"] == 0).all()
     for k in ("ed", "idx", "ed2", "end_pos"):

@@ -2,11 +2,13 @@
 equality), at small shapes. Needs a GPU and nvcc: skipped elsewhere. Run on
 the card with `python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 --noconftest` (tests/conftest.py imports jax, which a GPU host need not
-have; nothing here uses jax)."""
+have; nothing here uses jax). The edge cases of the whitelist sweep and of
+the band aligner are those `chip_smoke.py` runs (its generators)."""
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from sicelore_tpu_torch.models import readscan
 from sicelore_tpu_torch.ops import bcsearch, editdist
 from sicelore_tpu_torch.ops import edgescan as eg
@@ -226,6 +228,40 @@ def test_sweep_kernel_matches_plain(dev, reads, nvalid, track_pos):
     assert torch.equal(k, pl)
 
 
+@pytest.mark.parametrize("track_pos", [True, False])
+@pytest.mark.parametrize("name", sorted(chip_smoke.SWEEP_EDGE_CASES))
+def test_sweep_kernel_slices_match_plain(dev, name, track_pos):
+    """csrc/bcsweep.cu over a reads x slices grid against bc_sweep_plain on
+    the whole list: the cases the slices make possible to get wrong."""
+    wins, peq, nvalid, m, slices, ties = chip_smoke.sweep_edge_case(name,
+                                                                     "cpu")
+    before = bcsearch.bc_sweep.launches
+    k = bcsearch._bc_sweep_sliced(wins.to(dev), peq.to(dev), nvalid, m,
+                                  track_pos, slices)
+    torch.cuda.synchronize()
+    assert bcsearch.bc_sweep.launches == before + 1
+    pl = bcsearch.bc_sweep_plain(wins, peq, nvalid, m, track_pos)
+    assert k.dtype == torch.int32 and torch.equal(k.cpu(), pl)
+    if ties:
+        assert int((pl[0] == pl[2]).sum()) > 0          # ties: b2 == b1
+    if nvalid == 0:
+        assert (pl[0] == bcsearch.BIG).all() and (pl[1] == 0).all()
+
+
+def test_sweep_merge_kernel_matches_plain(dev):
+    """The merge kernel alone on crafted partials: ties between slices, a
+    slice of masked barcodes only in first, middle and last place, every
+    slice masked (the first slice's index 0 survives)."""
+    t = chip_smoke.merge_edge_partials("cpu")
+    got = bcsearch.merge_sweep_partials(t.to(dev))
+    torch.cuda.synchronize()
+    ref = bcsearch.merge_sweep_partials_plain(t)
+    assert torch.equal(got.cpu(), ref)
+    assert (ref[1, 900:] == 0).all() and (ref[0, 900:] == bcsearch.BIG).all()
+    assert torch.equal(bcsearch.merge_sweep_partials(t[:1].to(dev)).cpu(),
+                       t[0])
+
+
 def test_tile_kernel_matches_plain(dev, reads):
     _, seqs = reads
     cfg = PipelineConfig()
@@ -268,6 +304,27 @@ def test_band_kernel_matches_plain(dev, length, Lc, W):
         assert a.dtype == b.dtype and a.shape == b.shape, what
         assert torch.equal(a, b), (what, int((a != b).sum()))
     assert int(k[2].sum()) >= k[2].numel() - 3 and int(k[1].max()) >= 1
+
+
+@pytest.mark.parametrize("n_pairs,length,Lc,W", [
+    (5, 200, 256, 32), (3, 480, 512, 64), (1001, 110, 128, 32),
+    *chip_smoke.BAND_EDGE_SHAPES])
+def test_band_kernel_pair_groups_match_plain(dev, n_pairs, length, Lc, W):
+    """Four (W = 32) or two (W = 64) pairs a warp with P not a multiple of
+    the pairs a warp or a block holds, on pairs that run out of the band,
+    hug its edge, are empty or have a center of length 0."""
+    args = chip_smoke.band_edge_pairs(np.random.default_rng(n_pairs + Lc),
+                                      n_pairs, length, Lc, W, dev)
+    before = pc.band_align.launches
+    k = pc.band_align(*args, Lc, W)
+    torch.cuda.synchronize()
+    assert pc.band_align.launches == before + 1
+    pl = pc.band_align_plain(*args, Lc, W)
+    for a, b, what in zip(k, pl, ("aligned", "ins", "feasible")):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        assert torch.equal(a, b), (what, int((a != b).sum()))
+    if n_pairs > 30:
+        assert 0 < int(k[2].sum()) < n_pairs      # feasible and not
 
 
 def test_band_kernel_refuses_other_bands(dev):
