@@ -15,23 +15,31 @@ Phases (one JSON line each, with its seconds):
             chunk halves [65,536, 110], the complete-adapter windows
             [32,768, 110], the 5p TSO windows [32,768, twin] and six confirm
             windows a tile [6 x tiles, 160], plus B = 1 and B = 37 with an
-            all-PAD row. The sweep runs with and without the end position
-            (the main path asks for none), also over 4,096 reads (a small
-            launch must keep the card full), on small cases that its
-            barcode slices could get wrong (SWEEP_EDGE_CASES) and its merge
-            kernel alone against `merge_sweep_partials_plain`; the band
-            aligner also on pair sets with infeasible, band-edge and empty
-            pairs and a center of length 0 (BAND_EDGE_SHAPES), with both
-            forms of its prefix maximum. Tolerance: exact (integer outputs;
-            mismatches must be 0). Median ms of each over >= 5 timed calls
-            (CUDA events), each call on freshly mutated content;
-            `device_ms` is the kernel alone (torch.profiler; null when the
-            trace holds no kernel), `burst_ms` the mean of back-to-back
-            calls. Beside each time stands the kernel's bound on this card
-            (see BOUNDS below); a kernel faster than its bound ends the run. The composed
-            5p edge body (torch ops + three window searches) is timed at
-            32,768 reads beside the fused 3p kernel, with a sync-timed split
-            of one call by scan op.
+            all-PAD row, and on rows whose data starts 0-15 bytes past a
+            16-byte boundary (WIN1_EDGE_SHAPES); the chimera scan also on
+            edge tiles (tile_edge_rows: 0, 1, 3 and 5 runs a direction,
+            sites at own_lo, own_hi - 1 and tlen - k, confirm windows off
+            both tile ends, an all-PAD tile) in launches of 129 and 1
+            tiles. `wrapper_host_us`: the host time of one `myers_win1`
+            and one `tile_scan` call. The sweep runs with and without the
+            end position (the main path asks for none), also over 4,096
+            reads (a small launch must keep the card full), on small cases
+            that its barcode slices could get wrong (SWEEP_EDGE_CASES) and
+            its merge kernel alone against `merge_sweep_partials_plain`;
+            the band aligner also on pair sets with infeasible, band-edge
+            and empty pairs and a center of length 0 (BAND_EDGE_SHAPES),
+            with both forms of its prefix maximum. Tolerance: exact
+            (integer outputs; mismatches must be 0). Median ms of each over
+            >= 5 timed calls (CUDA events), each call on freshly mutated
+            content; `device_ms` is the device time of a call's launches
+            with no host time in it (CUDA events around calls queued behind
+            a spin kernel), `burst_ms` the mean of back-to-back calls as the
+            host issues them (band aligner, tile scan, window search).
+            Beside each time stands the kernel's bound on this card (see
+            BOUNDS below); a kernel faster than its bound ends the run. The
+            composed 5p edge body (torch ops + three window searches) is
+            timed at 32,768 reads beside the fused 3p kernel, with a
+            sync-timed split of one call by scan op.
   pipeline  `ScanFastqPipeline.run` on `cuda` over a synthetic run of
             131,072 reads in 4 fastq files (8,192 cells drawn from a
             65,536-barcode whitelist; 4% error, ~6% 2-8 kb reads, ~2%
@@ -101,9 +109,29 @@ Operation counts, from the kernels' own arithmetic:
     pairs (twin x npairs x 4) and the two run scans (E + win_p + k columns
     x 6; the head scan stops after win_p windows when it finds no run).
   bcsweep: reads x barcodes x window columns x 18.
-  tilescan, a tile: two run scans over 1,024 columns x 6; the Myers
-    confirms run only at the few sites found and are not counted.
-  win1: windows x columns x 18.
+  tilescan: the word form of the detection (csrc/tilescan.cu), the
+    cheapest form this package knows, counted with a three-input logic
+    operation as one, a 32-column word (a lane), both directions, k = 15
+    (the default and this run's): the A and T masks 86 (two shifts, then
+    for each mask two logic operations and a compaction of seven, a mask
+    and eight columns; three byte merges a mask); the window test 54 a
+    direction (doublings to 2, 4 and 8 columns, a funnel shift and two
+    logic operations a plane: 3 + 6 + 9; the 8-column sum taken as it is;
+    the 4-, 2- and 1-column sums added at offsets 8, 12 and 14 with their
+    shifts: 11 + 11 + 10; the carry test against mc: 4); the span mask and
+    the two ands 10; the rising edges 6: 210 a word, where the scalar scan
+    takes 6 a column and direction (384 a word). Shuffles, ballots and the
+    per-tile site walk are not counted. Words: those holding a window
+    start in [own_lo, min(own_hi, tlen - k + 1)) or a column such a
+    window reads (tile_scan_work), not all 32. Confirms: the sites the
+    plain detection finds x WI_CONFIRM (160) columns x 18. Bytes: the
+    same work, not whole rows: the 16 meta bytes of every tile, the bytes
+    (two columns each) of the union of the columns those windows read and
+    the confirm windows' columns inside [0, tlen) (the rest is PAD, known
+    from tlen), and the [3, T] int32 output.
+  win1: windows x columns x 18; the kernel's column step takes more
+    instructions than that (the Myers step, its two match-mask lookups
+    a pair of columns and the keyed best), so 18 stays the count.
   bandalign: sum over pairs of clen x W band cells x 13, what the
     recurrence needs of a cell whatever the kernel's design: substitution
     compare and select 3, diagonal add 1, vertical add and max 2, gap
@@ -157,6 +185,10 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 128
 MYERS_OPS = 18
 BAND_CELL_OPS = 13
+TILE_WORD_OPS = 210         # a 32-column word of the tile detection, k = 15
+TILE_EDGE_N = 129           # edge tiles: four blocks of 32 and one of 1
+HOST_CALLS = 1_000          # wrapper calls timed on the host clock
+SPIN_CYCLES = 1 << 24       # device_ms's first spin: ~8.5 ms at 1.98 GHz
 
 
 def emit(obj) -> None:
@@ -272,6 +304,72 @@ def bound(n_bytes: int, n_ops: int, int32_hz: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(n_bytes), "operations": int(n_ops)}
+
+
+def tile_scan_work(rows, p) -> tuple[int, int, int]:
+    """(words, sites, row bytes) of a tile scan over rows [T, 528] uint8:
+    the 32-column words holding a window start in a tile's span [own_lo,
+    min(own_hi, tlen - k + 1)) or a column such a window reads; the sites
+    the plain detection finds (each one Myers confirm); the bytes of the
+    rows the output depends on: every tile's 16 meta bytes and the bytes of
+    the columns those windows and the sites' confirm windows read inside
+    [0, tlen)."""
+    import torch
+
+    from sicelore_tpu_torch.ops import tilescan_cuda as ts
+    _, own_lo, own_hi, tlen, _, _ = ts._unpack(rows)
+    hi = torch.minimum(own_hi, tlen - p.k + 1)
+    end = torch.clamp(hi + p.k - 1, max=ts.TILE)
+    words = torch.where(hi > own_lo, (end + 31) // 32 - own_lo // 32, 0)
+    sA, sT = ts.tile_sites_plain(rows, p)
+    # column intervals [lo, hi) a tile reads -> byte intervals, whose union
+    # a running sum of +1 / -1 marks counts
+    lo = torch.cat([own_lo[:, None], sA, sT - ts.WI_CONFIRM], 1)
+    up = torch.cat([end[:, None], sA + ts.WI_CONFIRM, sT], 1)
+    live = torch.cat([(hi > own_lo)[:, None], sA >= 0, sT >= 0], 1)
+    lo = lo.clamp(min=0)
+    up = torch.minimum(up, tlen[:, None])
+    live = live & (up > lo)
+    marks = torch.zeros((rows.shape[0], ts.TILE // 2 + 1), dtype=torch.int32,
+                        device=rows.device)
+    marks.scatter_add_(1, torch.where(live, lo // 2, 0), live.int())
+    marks.scatter_add_(1, torch.where(live, (up + 1) // 2, 0), -live.int())
+    n_bytes = (marks.cumsum(1)[:, :-1] > 0).sum() + ts.TILE_META * len(rows)
+    return (int(words.sum()), int((sA >= 0).sum() + (sT >= 0).sum()),
+            int(n_bytes))
+
+
+def wrapper_host_us(dev, calls: int = HOST_CALLS) -> dict:
+    """Host microseconds of one wrapper call: `calls` calls back to back on
+    the host clock, no sync between them (the launches queue up), one
+    window of 90 columns for `myers_win1`, one tile for `tile_scan`; the
+    least of three rounds. What the wrapper's Python, its checks, the
+    allocation of its output and the launch cost the caller."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.ops import editdist
+    from sicelore_tpu_torch.ops import tilescan_cuda as ts
+    from sicelore_tpu_torch.utils.config import PipelineConfig
+    peq = editdist.build_peq(np.arange(16, dtype=np.int8)[None, :] % 4)
+    w = torch.zeros((1, 90), dtype=torch.int8, device=dev)
+    rows = torch.from_numpy(tile_edge_rows(2)[1:]).to(dev)
+    tp = ts.tile_params(PipelineConfig())
+    out = {}
+    for name, fn in (("win1", lambda: editdist.myers_win1(w, peq, 16)),
+                     ("tilescan", lambda: ts.tile_scan(rows, tp))):
+        best = None
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            us = (time.perf_counter() - t) / calls * 1e6
+            torch.cuda.synchronize()
+            best = us if best is None else min(best, us)
+        out[name] = best
+    return out
 
 
 def nbytes(*tensors) -> int:
@@ -403,6 +501,161 @@ def sweep_edge_cases(dev) -> dict:
                                != bcsearch.merge_sweep_partials_plain(parts)
                                ).sum())
     return out
+
+
+TILE_EDGE_KINDS = ("random", "one_cassette_each", "three_runs_each",
+                   "five_runs_each", "own_lo_and_own_hi_minus_1",
+                   "tlen_minus_k_and_windows_off_both_ends", "all_pad",
+                   "lane_boundaries_and_threshold", "n_inside_runs",
+                   "guard_near_read_ends")
+
+
+def tile_edge_rows(n: int, seed: int = SEED + 500):
+    """n tile rows [n, 528] uint8 (build_tiles' layout) cycling through
+    TILE_EDGE_KINDS: tiles with 0, 1, 3 and 5 polyA and polyT runs, full
+    adapter cassettes (so the confirms pass) and bare runs, runs starting at
+    own_lo, at own_hi - 1 and at tlen - k, confirm windows running off both
+    tile ends, an all-PAD tile (tlen 0), runs across 32-column boundaries
+    with exactly mc and mc - 1 A bases in a window, N inside runs, splits
+    within 50 bases of the read's ends."""
+    import numpy as np
+
+    from sicelore_tpu_torch.models import readscan
+    from sicelore_tpu_torch.utils import dna
+    from sicelore_tpu_torch.utils.config import PipelineConfig
+    cfg = PipelineConfig()
+    k = cfg.polyat.internal_pat_length
+    mc = int(np.ceil(cfg.polyat.internal_fraction_at_in_polyat * k - 1e-9))
+    adapter = dna.encode(cfg.adapter3p.sequence_complete.encode())
+    comp = np.asarray(dna._COMP, np.int8)
+    rng = np.random.default_rng(seed)
+    TILE = readscan.TILE
+
+    def t_cassette(s):      # adapter, BC, UMI, then a polyT run at s
+        return (s - 50, np.concatenate([adapter, rng.integers(
+            0, 4, 28).astype(np.int8), np.full(20, dna.T, np.int8)]))
+
+    def a_cassette(s):      # a polyA run at s, then the reverse complement
+        seg = t_cassette(0)[1]
+        return s, comp[seg[::-1]]
+
+    codes = np.full((n, TILE), dna.PAD, np.int8)
+    meta = np.zeros((n, 5), np.int64)       # own_lo, own_hi, tlen, g0, rlen
+    for i in range(n):
+        kind = TILE_EDGE_KINDS[i % len(TILE_EDGE_KINDS)]
+        tlen = int(rng.integers(600, TILE + 1))
+        own_lo, own_hi = int(rng.integers(0, 120)), tlen - k + 1
+        g0 = int(rng.integers(0, 4000))
+        rlen = g0 + tlen + int(rng.integers(0, 3000))
+        c = rng.integers(0, 4, TILE).astype(np.int8)
+        plants = []
+        if kind == "one_cassette_each":
+            plants = [t_cassette(int(rng.integers(200, 400))),
+                      a_cassette(int(rng.integers(420, tlen - 140)))]
+        elif kind == "three_runs_each":
+            for j in range(3):
+                plants.append(t_cassette(200 + 60 * j) if j == 1 else
+                              (200 + 60 * j, np.full(17, dna.T, np.int8)))
+                plants.append((400 + 50 * j, np.full(16 + j, dna.A, np.int8)))
+        elif kind == "five_runs_each":
+            for j in range(5):
+                plants.append((130 + 45 * j, np.full(15, dna.T, np.int8)))
+                plants.append((360 + 45 * j, np.full(15, dna.A, np.int8)))
+        elif kind == "own_lo_and_own_hi_minus_1":
+            own_lo = int(rng.integers(100, 200))
+            own_hi = int(rng.integers(own_lo + 200, tlen - 60))
+            # the T run's first passing window is own_hi - 1 exactly
+            plants = [(own_lo - 6, np.full(25, dna.A, np.int8)),
+                      t_cassette(own_lo + 60),
+                      (own_hi - 6, np.full(5 + k - mc, dna.C, np.int8)),
+                      (own_hi - 1 + k - mc, np.full(18, dna.T, np.int8))]
+        elif kind == "tlen_minus_k_and_windows_off_both_ends":
+            end = np.full(k + 3, dna.C, np.int8)   # mc A at the very end
+            end[-mc:] = dna.A
+            plants = [(tlen - k - 3, end),
+                      (tlen - 90, np.full(20, dna.A, np.int8)),
+                      (int(rng.integers(20, 60)), np.full(20, dna.T, np.int8))]
+            own_lo = 0
+        elif kind == "all_pad":
+            tlen, own_lo, own_hi = 0, 0, int(rng.integers(300, 900))
+        elif kind == "lane_boundaries_and_threshold":
+            ok_win = np.asarray([0, 0, 1, 0, 0, 0, 2, 0, 0, 0, 3, 0, 0, 1, 0],
+                                np.int8)            # 11 A of 15: passes
+            bad_win = ok_win.copy()
+            bad_win[0] = 1                          # 10 A of 15: fails
+            plants = [(28, np.full(8, dna.C, np.int8)),   # edges at 32, 95
+                      (32 + k - mc, np.full(15, dna.A, np.int8)),
+                      (91, np.full(8, dna.C, np.int8)),
+                      (95 + k - mc, np.full(15, dna.T, np.int8)),
+                      (250, ok_win), (300, bad_win), (350, 3 - ok_win),
+                      (480, np.full(40, dna.A, np.int8))]
+            own_lo = 0
+        elif kind == "n_inside_runs":
+            run = np.full(22, dna.A, np.int8)
+            run[[3, 9, 15]] = 4
+            plants = [(220, run), t_cassette(400), (520, np.where(
+                run == dna.A, dna.T, run).astype(np.int8))]
+        elif kind == "guard_near_read_ends":
+            g0 = 0
+            rlen = tlen + int(rng.integers(0, 40))
+            plants = [t_cassette(90), a_cassette(tlen - 200)]
+        for s, seg in plants:
+            lo, hi = max(s, 0), min(s + len(seg), TILE)
+            c[lo:hi] = seg[lo - s:hi - s]
+        c[tlen:] = dna.PAD
+        codes[i] = c
+        meta[i] = (own_lo, own_hi, tlen, g0, rlen)
+    rows = np.zeros((n, TILE // 2 + 16), np.uint8)
+    rows[:, :TILE // 2] = readscan.pack_nibbles_np(codes)
+    mv = rows[:, TILE // 2:]
+    for j, col in ((0, 0), (2, 1), (4, 2)):
+        mv[:, j] = meta[:, col] & 0xFF
+        mv[:, j + 1] = meta[:, col] >> 8
+    mv[:, 8:12] = meta[:, 3].astype("<u4").view(np.uint8).reshape(-1, 4)
+    mv[:, 12:16] = meta[:, 4].astype("<u4").view(np.uint8).reshape(-1, 4)
+    return rows
+
+
+# The window search's edge sets: (B, W, m, byte offset of the first row
+# from a 16-byte boundary). Offsets 1..15 put a block's span start anywhere
+# modulo 16 (W = 110 and 90 already move it from block to block); W = 200
+# takes the kernel's rounds of 160 columns.
+WIN1_EDGE_SHAPES = ((1, 1, 4, 3), (1, 90, 16, 0), (37, 110, 22, 5),
+                    (129, 160, 22, 0), (129, 110, 10, 7), (129, 90, 16, 13),
+                    (37, 1, 1, 15), (129, 160, 31, 9), (300, 200, 32, 1),
+                    (1, 160, 22, 11))
+
+
+def win1_edge_windows(B, W, m, off, seed=SEED + 600):
+    """(windows [B, W] int8 numpy, pattern [m] int8) for one
+    WIN1_EDGE_SHAPES entry: codes 0..5 with planted matches (one
+    substituted base in every second plant), PAD tails and an all-PAD
+    row; `off` is applied by the caller as the view's start in a larger
+    buffer."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 1000 * B + W + off)
+    pat = rng.integers(0, 4, m).astype(np.int8)
+    wins = rng.integers(0, 6, (B, W)).astype(np.int8)
+    for i in range(0, B, 2):
+        if W >= m:
+            o = int(rng.integers(0, W - m + 1))
+            wins[i, o:o + m] = pat
+            if i % 4 == 2 and m > 2:
+                wins[i, o + m // 2] = (wins[i, o + m // 2] + 1) % 4
+    wins[1::7, -(W // 4 + 1):] = 5
+    wins[B // 2] = 5
+    return wins, pat
+
+
+def unaligned_rows(a, off: int, dev):
+    """`a` [B, W] as a contiguous tensor on `dev` whose data starts `off`
+    bytes after a 16-byte boundary (a view into a larger buffer)."""
+    import torch
+    buf = torch.zeros(a.size + 64, dtype=torch.int8, device=dev)
+    base = (-buf.data_ptr()) % 16 + off
+    v = buf[base:base + a.size].view(a.shape)
+    v.copy_(torch.from_numpy(a).to(dev))
+    return v
 
 
 def band_edge_pairs(rng, n_pairs, length, Lc, W, dev):
@@ -618,32 +871,35 @@ def scanfastq_split(pipe, inputs, out_dir) -> dict:
             "seconds": {k: round(v, 3) for k, v in secs.items()}}
 
 
-def kernel_device_ms(fn, variants, kernel_name, attempts=3):
-    """Mean device milliseconds of the CUDA kernel whose name contains
-    `kernel_name` over fn(v) for each variant, from torch.profiler's trace
-    (no host time in it). A trace sometimes comes back without any kernel
-    record: up to `attempts` traces are taken, then None."""
+def device_ms(fn, variants):
+    """Mean device milliseconds of fn(v) over the variants with no host time
+    in it: a spin kernel (torch.cuda._sleep) holds the stream while the host
+    queues an event, every call and a second event, so the two events
+    bracket the calls' launches run back to back. The spin must outlast the
+    host's queueing, which is checked on the host clock; it grows until it
+    does. Every launch of a call counts (the sweep's merge kernel with its
+    sweep). CUDA events only: torch.profiler traces on the card lost kernel
+    records and once read a kernel at half its time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(attempts):
+    fn(variants[0])
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = SPIN_CYCLES
+    for _ in range(6):
+        t = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        for v in variants:
+            fn(v)
+        ev[2].record()
+        host_ms = (time.perf_counter() - t) * 1e3
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for v in variants:
-                fn(v)
-            torch.cuda.synchronize()
-        us = n = 0
-        for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total",
-                        getattr(ev, "cuda_time_total", 0))
-            if kernel_name in ev.key and t:
-                us, n = us + t, n + ev.count
-        if n:
-            return us / n / 1e3
-        print(f"kernel_device_ms: no device time for {kernel_name!r}; the "
-              f"trace holds {sorted(ev.key for ev in prof.key_averages())}",
-              file=sys.stderr)
-    return None
+        if ev[0].elapsed_time(ev[1]) > 1.5 * host_ms:
+            return ev[1].elapsed_time(ev[2]) / len(variants)
+        cycles *= 4
+    raise SystemExit("device_ms: the spin kernel never outlasted the host's "
+                     "queueing")
 
 
 def burst_ms(fn, variants):
@@ -836,9 +1092,8 @@ def _run(pool, wl, cells, work, dev) -> int:
         + (eg.E + ep.win_p + ep.k) * 6)
     results["edgescan"].update(bound(nbytes(codes_tm, lens_d, meta),
                                      edge_ops, int32_hz))
-    results["edgescan"]["device_ms"] = kernel_device_ms(
-        lambda c: edge_scan2(c, lens_d, ep), variants[1:],
-        "edge_scan_kernel")
+    results["edgescan"]["device_ms"] = device_ms(
+        lambda c: edge_scan2(c, lens_d, ep), variants[1:])
     wins = meta[eg.ROW_BC0:].to(torch.uint8).contiguous()
 
     def mutate_wins(w):
@@ -899,12 +1154,15 @@ def _run(pool, wl, cells, work, dev) -> int:
         results[key_np].update(bound(nbytes(wins, peq) + 4 * B * 4,
                                      sweep_ops, int32_hz))
         for tag, track in (("", True), ("_nopos", False)):
-            results[f"bcsweep_{n_bc}{tag}"]["device_ms"] = kernel_device_ms(
+            results[f"bcsweep_{n_bc}{tag}"]["device_ms"] = device_ms(
                 lambda w: bcsearch.bc_sweep(w, peq, n_bc, m, track_pos=track),
-                wvars, "bc_sweep_kernel")
-        results[key]["merge_device_ms"] = kernel_device_ms(
-            lambda w: bcsearch.bc_sweep(w, peq, n_bc, m, track_pos=True),
-            wvars, "bc_merge_kernel")
+                wvars)
+        # the merge kernel alone, over partials of this launch's grid
+        parts = [torch.randint(0, m + 1, (S, 4, B), device=dev, generator=g,
+                               dtype=torch.int32) for _ in range(TIMED_CALLS)]
+        results[key]["merge_device_ms"] = device_ms(
+            bcsearch.merge_sweep_partials, parts)
+        del parts
         if n_bc == SWEEP_LISTS[0]:
             # a small launch (a split rescan's size): the grid's slices must
             # keep the card full
@@ -920,10 +1178,9 @@ def _run(pool, wl, cells, work, dev) -> int:
                 results[k4].update(bound(
                     nbytes(wsmall[0], peq) + 4 * n_small * 4,
                     n_small * n_bc * wins.shape[0] * MYERS_OPS, int32_hz))
-                results[k4]["device_ms"] = kernel_device_ms(
+                results[k4]["device_ms"] = device_ms(
                     lambda w: bcsearch.bc_sweep(w, peq, n_bc, m,
-                                                track_pos=track),
-                    wsmall, "bc_sweep_kernel")
+                                                track_pos=track), wsmall)
     edge_cases = sweep_edge_cases(dev)
     results["bcsweep_edge_cases"] = {
         "mismatches": sum(edge_cases.values()), "cases": edge_cases}
@@ -940,15 +1197,33 @@ def _run(pool, wl, cells, work, dev) -> int:
         return r
 
     tvars = [rows_d] + [mutate_tiles(rows_d) for _ in range(TIMED_CALLS)]
+    # the bound first, from the plain detection over these tiles (each
+    # variant differs from the chunk's tiles by one base a tile: the first
+    # variant's work stands for all)
+    n_tiles = int(rows.shape[0])
+    if tp.k != 15:
+        raise SystemExit(f"TILE_WORD_OPS counts k = 15, the run has {tp.k}")
+    words, sites, row_bytes = tile_scan_work(rows_d, tp)
+    tile_bound = bound(row_bytes + 3 * n_tiles * 4,
+                       words * TILE_WORD_OPS
+                       + sites * ts.WI_CONFIRM * MYERS_OPS, int32_hz)
+    tile_bound.update({"words": words, "sites": sites})
     results["tilescan"] = compare(
         "tilescan", lambda r: ts.tile_scan(r, tp),
         lambda r: ts.tile_scan_plain(r, tp), tvars)
-    results["tilescan"]["device_ms"] = kernel_device_ms(
-        lambda r: ts.tile_scan(r, tp), tvars[1:], "tile_scan_kernel")
+    results["tilescan"].update(tile_bound)
+    results["tilescan"]["device_ms"] = device_ms(
+        lambda r: ts.tile_scan(r, tp), tvars[1:])
+    results["tilescan"]["burst_ms"] = burst_ms(
+        lambda r: ts.tile_scan(r, tp), tvars[1:])
     del tvars
-    n_tiles = int(rows.shape[0])
-    results["tilescan"].update(bound(
-        nbytes(rows_d) + 3 * n_tiles * 4, n_tiles * 2 * ts.TILE * 6, int32_hz))
+    # the tiles the kernel's words, lanes and blocks could get wrong, in
+    # one launch of TILE_EDGE_N tiles and one of a single tile
+    edge_rows = torch.from_numpy(tile_edge_rows(TILE_EDGE_N))
+    results["tilescan_edge_cases"] = {"mismatches": sum(
+        int((ts.tile_scan(r.to(dev), tp).cpu()
+             != ts.tile_scan_plain(r, tp)).sum())
+        for r in (edge_rows, edge_rows[6:7].clone(), edge_rows[1:2].clone()))}
 
     # the window search at the shapes its paths give it: the 5p composed
     # edge body's three searches over one chunk, the confirm windows of
@@ -1004,9 +1279,25 @@ def _run(pool, wl, cells, work, dev) -> int:
         results[key].update(bound(nw * ww + 2 * nw * 4,
                                   nw * ww * MYERS_OPS, int32_hz))
         results[key].update({"windows": nw, "columns": ww, "m": m1})
-        results[key]["device_ms"] = kernel_device_ms(
-            lambda x: editdist.myers_win1(x, peq1, m1),
-            [mutate_rows(w) for _ in range(TIMED_CALLS)], "win1_kernel")
+        wv = [mutate_rows(w) for _ in range(TIMED_CALLS)]
+        results[key]["device_ms"] = device_ms(
+            lambda x: editdist.myers_win1(x, peq1, m1), wv)
+        results[key]["burst_ms"] = burst_ms(
+            lambda x: editdist.myers_win1(x, peq1, m1), wv)
+        del wv
+    # rows whose data starts anywhere modulo 16 (the kernel stages a
+    # block's span with 16-byte loads), and a window wider than one round
+    w1_edges = {}
+    for Be, We, me, off in WIN1_EDGE_SHAPES:
+        a, pat = win1_edge_windows(Be, We, me, off)
+        peq_e = editdist.build_peq(pat[None, :])
+        got = editdist.myers_win1(unaligned_rows(a, off, dev), peq_e, me)
+        ref = editdist.myers_win1_plain(torch.from_numpy(a), peq_e, me)
+        w1_edges[f"{Be}x{We}_m{me}_off{off}"] = sum(
+            int((x.cpu() != y).sum()) for x, y in zip(got, ref))
+    results["win1_edge_cases"] = {"mismatches": sum(w1_edges.values()),
+                                  "cases": w1_edges}
+    host_us = wrapper_host_us(dev)
     ed_pad, pos_pad = editdist.myers_win1(win1_shapes["win1_b37"][0],
                                           ep5.peq_ad, ep5.m_ad)
     if (int(ed_pad[36]), int(pos_pad[36])) != (ep5.m_ad, -1):
@@ -1058,10 +1349,9 @@ def _run(pool, wl, cells, work, dev) -> int:
             + P * (Lc + 1) * (1 + 4 * poa_cuda.K_INS) + 4 * P,
             band_cells * BAND_CELL_OPS, int32_hz))
         results[key].update({"pairs": P, "band_cells": band_cells})
-        results[key]["device_ms"] = kernel_device_ms(
+        results[key]["device_ms"] = device_ms(
             lambda r: poa_cuda.band_align(r, rl_d, mids_d, cmol_d, clm_d,
-                                          Lc, W),
-            bvars[1:], "band_align_kernel")
+                                          Lc, W), bvars[1:])
         results[key]["burst_ms"] = burst_ms(
             lambda r: poa_cuda.band_align(r, rl_d, mids_d, cmol_d, clm_d,
                                           Lc, W), bvars[1:])
@@ -1086,7 +1376,8 @@ def _run(pool, wl, cells, work, dev) -> int:
         "mismatches": sum(v["mismatches"] for v in band_edges.values()),
         "cases": band_edges}
     emit({"phase": "kernels", "reads": B, "tiles": n_tiles,
-          "tolerance": "exact", "results": results,
+          "tolerance": "exact", "wrapper_host_us": host_us,
+          "results": results,
           "s": round(time.time() - t0, 2)})
     bad = {k: v["mismatches"] for k, v in results.items() if v["mismatches"]}
     if bad:
@@ -1408,9 +1699,16 @@ def _run(pool, wl, cells, work, dev) -> int:
                  "bound_by": r["bound_by"], "library_ms": None}
         if name in ("edgescan", "tilescan"):
             entry["device_ms"] = r["device_ms"]
+        if name == "tilescan":
+            entry.update({"burst_ms": r["burst_ms"], "words": r["words"],
+                          "sites": r["sites"],
+                          "host_us": host_us["tilescan"],
+                          "edge_case_mismatches":
+                              results["tilescan_edge_cases"]["mismatches"]})
         if name == "bcsweep":
             # ms: the wrapper's call with the end position; *_nopos: the
-            # main path's call; device_ms: the sweep kernel alone
+            # main path's call; device_ms: the sweep and its merge on the
+            # device; merge_device_ms: the merge kernel alone
             entry.update({"n_barcodes": SWEEP_LISTS[0],
                           "slices": r["slices"],
                           "device_ms": r["device_ms"],
@@ -1452,11 +1750,16 @@ def _run(pool, wl, cells, work, dev) -> int:
         if name == "win1":
             entry.update({"windows": r["windows"], "columns": r["columns"],
                           "device_ms": r["device_ms"],
-                          "launches_v1_control": launches_c["win1"]})
+                          "burst_ms": r["burst_ms"],
+                          "host_us": host_us["win1"],
+                          "launches_v1_control": launches_c["win1"],
+                          "edge_case_mismatches":
+                              results["win1_edge_cases"]["mismatches"]})
             for k in ("adc", "tso", "confirm", "b37", "b1"):
                 o = results[f"win1_{k}"]
                 entry.update({f"ms_{k}": o["ms"],
                               f"device_ms_{k}": o["device_ms"],
+                              f"burst_ms_{k}": o["burst_ms"],
                               f"plain_ms_{k}": o["plain_ms"],
                               f"bound_ms_{k}": o["bound_ms"],
                               f"windows_{k}": o["windows"],

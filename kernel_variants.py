@@ -1,0 +1,364 @@
+"""Variants of the hand-written kernels, timed on the card, and the host time
+of two wrappers. A diagnostic beside chip_smoke.py, not part of the package:
+nothing imports it.
+
+    python3 kernel_variants.py band     # where the band kernel's time goes
+    python3 kernel_variants.py win1     # window search: threads a block
+    python3 kernel_variants.py tile     # tile scan: block shape, general path
+    python3 kernel_variants.py host [--root DIR]   # wrappers' host time
+
+band, win1 and tile build a copy of csrc/<kernel>.cu once a variant, the
+variant made by exact text replacement (and nvcc -D flags), so an edit of
+the kernel that moves a patched line makes this script fail loudly instead
+of timing something else; all nvcc runs go in parallel. Every variant of
+win1 and tile computes the kernel's results and is checked against the
+plain version first. Times: ms a launch, the least of three bursts of
+REPS launches between two CUDA events; the base variant runs first and
+again last (the least of both). One JSON line a shape: {"shape", "ms":
+{variant: ms}}.
+
+band: bandalign.cu with one part compiled out each, so these variants
+compute WRONG results (only their time is read): nowalk (no traceback and
+no copy-out lookups), nozero (no zero fill of `ins`), fwd = nowalk + nozero
+(the forward pass and the repack alone), fwd_noshfl (fwd with every
+shuffle an add), fwd_bare (fwd_noshfl without the mask stores and the
+global loads: the recurrence's ALU work alone); logscan (the prefix maximum
+in log2(G) dependent shuffle levels, same results); w1/w2/w4/w7 (one block
+of that many warps an SM). At chip_smoke.py's band shapes.
+
+win1: win1.cu with 128 (base) or 64 threads a block, at the shapes the 5p
+edge body and the tile confirms give it.
+
+tile: tilescan.cu with 32 tiles and 128 threads a block (base) or other
+shapes (t<tiles>_w<warps>), and `general`, the kernel's general path (k
+and mc read at run time) in place of the one with the default k = 15,
+mc = 11 compiled in. Over chip_smoke.py's tiles of one 32,768-read 3p
+chunk (46,942 tiles) and over its edge tiles (4,096, 11 times over), each
+in three copies that launches rotate through (more than the L2 holds).
+
+host: chip_smoke.py's `wrapper_host_us` (host us of one `myers_win1` and
+one `tile_scan` call) against the `sicelore_tpu_torch` under --root
+(default: this checkout). To compare two trees on one card, unpack the
+other into a directory that .gitignore lists (`git archive`) and run this
+once with --root there and once without, in one command.
+
+Needs a CUDA GPU (and nvcc for band, win1, tile)."""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+REPS = 20
+
+BAND_PATCHES = (
+    ("namespace {\n\nconstexpr int MATCH",
+     "#ifdef KNOB_NOSHFL\n"
+     "#define __shfl_up_sync(m, v, d, w) ((v) + (d))\n"
+     "#define __shfl_down_sync(m, v, d, w) ((v) - (d))\n"
+     "#endif\nnamespace {\n\nconstexpr int MATCH"),
+    ("          sp[c * G] = (unsigned char)bits;\n        }\n      } else {",
+     "#ifndef KNOB_NOSTS\n          sp[c * G] = (unsigned char)bits;\n#else\n"
+     "          if (bits == 0x12345u) sp[c * G] = 1;\n#endif\n"
+     "        }\n      } else {"),
+    ("      const unsigned nnw =\n"
+     "          (more && nx >= 0) ? *(const unsigned*)(rrow + nx) : 0u;\n"
+     "      const unsigned ncw =\n"
+     "          more ? *(const unsigned*)(crow + j0 + CPL - 1) : 0u;",
+     "#ifdef KNOB_NOLDG\n"
+     "      const unsigned nnw = nw * 1664525u + 1013904223u;\n"
+     "      const unsigned ncw = (cw * 22695477u + 1u) & 0x03030303u;\n"
+     "#else\n"
+     "      const unsigned nnw =\n"
+     "          (more && nx >= 0) ? *(const unsigned*)(rrow + nx) : 0u;\n"
+     "      const unsigned ncw =\n"
+     "          more ? *(const unsigned*)(crow + j0 + CPL - 1) : 0u;\n"
+     "#endif"),
+    ("      for (int k = lane; k < n; k += 32) dst[k] = make_int4(0, 0, 0, 0);",
+     "#ifndef KNOB_NOZERO\n"
+     "      for (int k = lane; k < n; k += 32) dst[k] = make_int4(0, 0, 0, 0);"
+     "\n#endif"),
+    ("      if (feas) {\n        int b = btc, j = clen;",
+     "#ifdef KNOB_NOWALK\n      if (false) {\n#else\n      if (feas) {\n#endif\n"
+     "        int b = btc, j = clen;"),
+    ("__device__ __forceinline__ int group_prefix_max(int y) {\n",
+     "__device__ __forceinline__ int group_prefix_max(int y) {\n"
+     "#ifdef KNOB_LOGSCAN\n"
+     "#pragma unroll\n"
+     "  for (int d = 1; d < G; d <<= 1)\n"
+     "    y = max(y, __shfl_up_sync(FULL, y, d, G));\n"
+     "  return y;\n"
+     "#endif\n"),
+    ("  const size_t smem = wpb * wbytes;",
+     "#ifdef KNOB_WARPS\n  wpb = KNOB_WARPS;\n#endif\n"
+     "  const size_t smem = wpb * wbytes;"),
+    ("  const int grid = min((nsets + wpb - 1) / wpb, sms * max(per_sm, 1));",
+     "#ifdef KNOB_WARPS\n"
+     "  const int grid = min((nsets + wpb - 1) / wpb, sms);\n"
+     "#else\n"
+     "  const int grid = min((nsets + wpb - 1) / wpb, sms * max(per_sm, 1));\n"
+     "#endif"),
+)
+FWD = ["-DKNOB_NOWALK", "-DKNOB_NOZERO"]
+BAND_VARIANTS = {
+    "base": [], "nowalk": ["-DKNOB_NOWALK"], "nozero": ["-DKNOB_NOZERO"],
+    "fwd": FWD, "fwd_noshfl": FWD + ["-DKNOB_NOSHFL"],
+    "fwd_bare": FWD + ["-DKNOB_NOSHFL", "-DKNOB_NOSTS", "-DKNOB_NOLDG"],
+    "logscan": ["-DKNOB_LOGSCAN"],
+    "w1": ["-DKNOB_WARPS=1"], "w2": ["-DKNOB_WARPS=2"],
+    "w4": ["-DKNOB_WARPS=4"], "w7": ["-DKNOB_WARPS=7"],
+}
+
+WIN1_ROWS = "constexpr int ROWS = 128;"
+WIN1_SHAPES = ((65_536, 110, 10), (32_768, 110, 22), (32_768, 90, 16),
+               (281_652, 160, 22))
+
+TILE_TPB = "constexpr int TPB = 32;"
+TILE_THREADS = "constexpr int THREADS = 128;"
+TILE_SPECIAL = "  if (P.k == 15 && P.mc == 11)"
+
+
+def _tile_shape(tpb, threads):
+    return [(TILE_TPB, f"constexpr int TPB = {tpb};"),
+            (TILE_THREADS, f"constexpr int THREADS = {threads};")]
+
+
+TILE_VARIANTS = {"base": [], "t16_w2": _tile_shape(16, 64),
+                 "t8_w2": _tile_shape(8, 64), "t16_w4": _tile_shape(16, 128),
+                 "t64_w8": _tile_shape(64, 256),
+                 "general": [(TILE_SPECIAL, "  if (false)")]}
+
+
+def patched(src: str, reps) -> str:
+    for old, new in reps:
+        if src.count(old) != 1:
+            raise SystemExit(f"kernel_variants: the kernel source no longer "
+                             f"holds exactly once:\n{old}")
+        src = src.replace(old, new)
+    return src
+
+
+def build(stem, variants, entry, n_ptr, n_int, common=()):
+    """csrc/<stem>.cu with `common` replacements, then once a variant with
+    its own: variants {name: ([(old, new), ...], [nvcc flags])}. All nvcc
+    runs in parallel; returns {name: the bound C entry}."""
+    from sicelore_tpu_torch.ops import _build
+    nvcc = _build.find_nvcc()
+    if nvcc is None:
+        raise SystemExit("kernel_variants: nvcc not found")
+    src = patched((_build.CSRC / f"{stem}.cu").read_text(), common)
+    out = _build.BUILD_DIR.parent / "kernel_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for k, (reps, flags) in variants.items():
+        cu = out / f"{stem}_{k}.cu"
+        cu.write_text(patched(src, reps))
+        with open(cu.with_suffix(".log"), "w") as log:
+            procs[k] = subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, *flags, f"-I{_build.CSRC}", "-o",
+                 str(cu.with_suffix(".so")), str(cu)],
+                stdout=log, stderr=subprocess.STDOUT)
+    fns = {}
+    for k, p in procs.items():
+        if p.wait():
+            raise SystemExit(f"kernel_variants: nvcc failed on {stem} {k}:\n"
+                             + (out / f"{stem}_{k}.log").read_text())
+        f = getattr(ctypes.CDLL(str(out / f"{stem}_{k}.so")), entry)
+        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        fns[k] = f
+    return fns
+
+
+def least_ms(launch, args) -> float:
+    """ms a launch: the least of three bursts of REPS launches, launch i
+    taking args[i % len(args)]."""
+    import torch
+    best = None
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        a.record()
+        for i in range(REPS):
+            launch(args[i % len(args)])
+        b.record()
+        torch.cuda.synchronize()
+        t = a.elapsed_time(b) / REPS
+        best = t if best is None else min(best, t)
+    return best
+
+
+def in_turns(names, launch, check, args) -> dict:
+    """{variant: ms}, base first and again last; check(name) before timing."""
+    ms = {}
+    for k in [*names, "base"]:
+        check(k)
+        t = least_ms(lambda a: launch(k, a), args)
+        ms[k] = min(t, ms.get(k, t))
+    return ms
+
+
+def run_band() -> None:
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from sicelore_tpu_torch.ops import _build
+    fns = build("bandalign", {k: ([], f) for k, f in BAND_VARIANTS.items()},
+                "bandalign_launch", 8, 4, common=BAND_PATCHES)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = _build.stream_handle(dev)
+    rng = np.random.default_rng(chip_smoke.SEED + 100)
+    for Lc, W, n_pairs, lo, hi in chip_smoke.BAND_SHAPES:
+        reads, rl, mids, cm, cl = chip_smoke.band_pairs(rng, Lc, W, n_pairs,
+                                                        lo, hi, dev)
+        P = reads.shape[0]
+        al = torch.empty((P, Lc + 1), dtype=torch.int8, device=dev)
+        ins = torch.empty((P, Lc + 1, 4, 4), dtype=torch.int8, device=dev)
+        fe = torch.empty((P,), dtype=torch.int32, device=dev)
+        # more shared memory than a block may ask: no such variant here
+        names = [k for k in BAND_VARIANTS
+                 if not (k[0] == "w" and int(k[1:]) * 32 * Lc > 232_448)]
+
+        def launch(k, _):
+            _build.check(fns[k](reads.data_ptr(), rl.data_ptr(),
+                                mids.data_ptr(), cm.data_ptr(), cl.data_ptr(),
+                                al.data_ptr(), ins.data_ptr(), fe.data_ptr(),
+                                P, cm.shape[0], Lc, W, stream), k)
+        print(json.dumps({"shape": [Lc, W, P], "ms": in_turns(
+            names, launch, lambda k: None, [None])}), flush=True)
+
+
+def run_win1() -> None:
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.ops import _build, editdist
+    fns = build("win1", {"base": ([], []),
+                         "rows64": ([(WIN1_ROWS,
+                                      "constexpr int ROWS = 64;")], [])},
+                "win1_launch", 2, 7)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = _build.stream_handle(dev)
+    rng = np.random.default_rng(7)
+    for B, W, m in WIN1_SHAPES:
+        wins = torch.randint(0, 6, (B, W), dtype=torch.int8, device=dev)
+        peq = editdist.build_peq(rng.integers(0, 4, m).astype(np.int8)[None])
+        pq = peq[:, 0].view(np.int32).tolist()
+        ref = torch.stack(editdist.myers_win1_plain(wins, peq, m)).int()
+        res = torch.empty((2, B), dtype=torch.int32, device=dev)
+
+        def launch(k, _):
+            _build.check(fns[k](wins.data_ptr(), res.data_ptr(), B, W, m,
+                                *pq, stream), k)
+
+        def check(k):
+            launch(k, None)
+            if not torch.equal(res, ref):
+                raise SystemExit(f"kernel_variants: win1 {k} differs from "
+                                 f"the plain version at {B} x {W}")
+        print(json.dumps({"shape": [B, W, m], "ms": in_turns(
+            fns, launch, check, [None])}), flush=True)
+
+
+def chunk_tiles():
+    """chip_smoke.py's tiles of its first 3p chunk (same seeds)."""
+    import numpy as np
+
+    import chip_smoke
+    from sicelore_tpu_torch.io import fastq
+    from sicelore_tpu_torch.models import readscan
+    from sicelore_tpu_torch.ops import _build
+    from sicelore_tpu_torch.utils import synth
+    from sicelore_tpu_torch.utils.config import PipelineConfig
+    rng = np.random.default_rng(chip_smoke.SEED)
+    wl = synth.make_whitelist(rng, chip_smoke.N_WHITELIST)
+    cells = [wl[i] for i in sorted(rng.choice(
+        chip_smoke.N_WHITELIST, chip_smoke.N_CELLS, replace=False).tolist())]
+    path = _build.BUILD_DIR.parent / "kernel_variants" / "reads0.fastq"
+    chip_smoke.make_file((str(path), chip_smoke.SEED + 1, cells, "3p"))
+    chunk = next(fastq.read_fastq(path, chip_smoke.READS_PER_FILE))
+    path.unlink()
+    return readscan.build_tiles(chunk.seqs, PipelineConfig())[0]
+
+
+def run_tile() -> None:
+    import torch
+
+    import chip_smoke
+    from sicelore_tpu_torch.ops import _build
+    from sicelore_tpu_torch.ops import tilescan_cuda as ts
+    from sicelore_tpu_torch.utils.config import PipelineConfig
+    fns = build("tilescan", {k: (r, []) for k, r in TILE_VARIANTS.items()},
+                "tilescan_launch", 3, 2)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = _build.stream_handle(dev)
+    tp = ts.tile_params(PipelineConfig())
+    prm = ts.kernel_params(tp)
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    for name, rows in (("chunk", torch.from_numpy(chunk_tiles())),
+                       ("edge", torch.from_numpy(
+                           chip_smoke.tile_edge_rows(4096)).repeat(11, 1))):
+        T = rows.shape[0]
+        copies = [rows.to(dev)]
+        for _ in range(2):              # one base a tile changed
+            r = copies[0].clone()
+            c = torch.randint(0, 256, (T,), device=dev, generator=g)
+            r[torch.arange(T, device=dev), c] = torch.randint(
+                0, 4, (T,), device=dev, generator=g, dtype=torch.uint8) * 17
+            copies.append(r)
+        ref = ts.tile_scan_plain(copies[0], tp)
+        res = torch.empty((3, T), dtype=torch.int32, device=dev)
+
+        def launch(k, r):
+            _build.check(fns[k](r.data_ptr(), res.data_ptr(), prm.ctypes.data,
+                                T, prm.size, stream), k)
+
+        def check(k):
+            launch(k, copies[0])
+            if not torch.equal(res, ref):
+                raise SystemExit(f"kernel_variants: tile {k} differs from "
+                                 f"the plain version ({name} tiles)")
+        print(json.dumps({"shape": [name, T], "ms": in_turns(
+            fns, launch, check, copies)}), flush=True)
+
+
+def run_host(root: Path) -> None:
+    import torch
+
+    import chip_smoke                      # puts HERE first on the path
+    sys.path.insert(0, str(root))          # the package under test first
+    import sicelore_tpu_torch
+    if not Path(sicelore_tpu_torch.__file__).resolve().is_relative_to(root):
+        raise SystemExit(f"kernel_variants: imported "
+                         f"{sicelore_tpu_torch.__file__}, not the package "
+                         f"under {root}")
+    print(json.dumps({"root": str(root), "host_us": chip_smoke.wrapper_host_us(
+        torch.device("cuda"))}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("what", choices=("band", "win1", "tile", "host"))
+    ap.add_argument("--root", default=str(HERE),
+                    help="host: the checkout whose package is timed")
+    a = ap.parse_args()
+    sys.path.insert(0, str(HERE))
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    if a.what == "host":
+        run_host(Path(a.root).resolve())
+    else:
+        {"band": run_band, "win1": run_win1, "tile": run_tile}[a.what]()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

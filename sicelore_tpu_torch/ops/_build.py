@@ -125,4 +125,7 @@ def check(err: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of `device` (a CUDA tensor's device, so its
+    index is set) as an integer handle: PyTorch's raw query, which builds no
+    Stream object (the call its own generated kernels make)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -19,6 +19,7 @@ import torch
 from sicelore_tpu_torch.ops import _build
 
 INT_MAX = 2**31 - 1  # reference reports ed_sec=2147483647 when none found
+WIN1_MAX_W = 2**26   # csrc/win1.cu keys (score, column) in 32 bits
 
 
 def build_peq(patterns: np.ndarray) -> np.ndarray:
@@ -106,7 +107,8 @@ myers_win1_plain.launches = 0
 def myers_win1(windows: torch.Tensor, peq1: np.ndarray, m: int):
     """Single-pattern semi-global search over each window row.
 
-    windows [B, W] int8 codes 0..5 (any B >= 0, W >= 1), peq1 [4, 1] uint32
+    windows [B, W] int8 codes 0..5 (any B >= 0, W >= 1; on the card W <=
+    WIN1_MAX_W), peq1 [4, 1] uint32
     Peq (`build_peq`) of one pattern of 1 <= m <= 32 bases. Returns (ed [B]
     int32, end_pos [B] int32): the best edit distance and the 0-based column
     where that match ends, the first column on ties, (m, -1) when no column
@@ -125,12 +127,15 @@ def myers_win1(windows: torch.Tensor, peq1: np.ndarray, m: int):
     if windows.dtype != torch.int8 or not windows.is_contiguous():
         raise ValueError("windows must be contiguous int8")
     B, W = windows.shape
+    if W > WIN1_MAX_W:
+        raise ValueError(f"the kernel takes windows of up to {WIN1_MAX_W} "
+                         f"columns, got {W}")
     out = torch.empty((2, B), dtype=torch.int32, device=windows.device)
     if B == 0:
         return out.unbind(0)
+    a, c, g, t = peq1[:, 0].view(np.int32).tolist()
     fn = _build.bind("win1", "win1_launch", 2, 7)
-    _build.check(fn(windows.data_ptr(), out.data_ptr(), B, W, m,
-                    *(int(v) for v in peq1[:, 0].view(np.int32)),
+    _build.check(fn(windows.data_ptr(), out.data_ptr(), B, W, m, a, c, g, t,
                     _build.stream_handle(windows.device)), "win1")
     myers_win1.launches += 1
     return out.unbind(0)

@@ -11,6 +11,7 @@ absent). The plain version is a torch port of
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -63,14 +64,14 @@ def _unpack(rows: torch.Tensor):
     return codes, own_lo, own_hi, tlen, g0, rlen
 
 
-def tile_scan_plain(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
-    """Plain PyTorch tile scan: rows [T, TILE/2 + 16] uint8 -> [3, T] int32."""
-    tile_scan_plain.launches += 1
-    S = rows.shape[0]
-    dev = rows.device
-    K, Wi, k = K_TILE_SITES, WI_CONFIRM, p.k
-    codes, own_lo, own_hi, tlen, g0, rlen = _unpack(rows)
-    pos = torch.arange(TILE - k + 1, device=dev)[None, :]
+def tile_sites_plain(rows: torch.Tensor, p: TileParams):
+    """The detection of the plain tile scan: the first K_TILE_SITES starts
+    of maximal passing stretches inside each tile's ownership span, per
+    direction. rows [T, TILE/2 + 16] uint8 -> (sA, sT) [T, K] int64, -1
+    where a tile has fewer. The confirms the scan runs are the sites >= 0."""
+    k = p.k
+    codes, own_lo, own_hi, tlen, _, _ = _unpack(rows)
+    pos = torch.arange(TILE - k + 1, device=rows.device)[None, :]
     site_lists = []
     for base in (dna.A, dna.T):
         counts = scan._rolling_count((codes == base).to(torch.int32), k)
@@ -78,12 +79,22 @@ def tile_scan_plain(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
               & (pos < own_hi[:, None]) & (pos <= tlen[:, None] - k))
         rs = ok & ~F.pad(ok[:, :-1], (1, 0))
         ss = []
-        for _ in range(K):
+        for _ in range(K_TILE_SITES):
             j = torch.where(rs, pos, BIG).min(dim=1).values
             ss.append(torch.where(j < BIG, j, -1))
             rs = rs & (pos > j[:, None])
-        site_lists.append(torch.stack(ss, dim=1))        # [S, K]
-    sA, sT = site_lists
+        site_lists.append(torch.stack(ss, dim=1))        # [T, K]
+    return site_lists[0], site_lists[1]
+
+
+def tile_scan_plain(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
+    """Plain PyTorch tile scan: rows [T, TILE/2 + 16] uint8 -> [3, T] int32."""
+    tile_scan_plain.launches += 1
+    S = rows.shape[0]
+    dev = rows.device
+    K, Wi = K_TILE_SITES, WI_CONFIRM
+    codes, _, _, tlen, g0, rlen = _unpack(rows)
+    sA, sT = tile_sites_plain(rows, p)
     # one stacked confirm over the 2K windows of each tile: the windows of
     # gather_window(codes, tlen, start, Wi), A-sites reverse-complemented
     src = torch.arange(S, device=dev).repeat_interleave(K).repeat(2)
@@ -124,8 +135,10 @@ def tile_scan_plain(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
 tile_scan_plain.launches = 0
 
 
+@functools.lru_cache(maxsize=16)
 def kernel_params(p: TileParams) -> np.ndarray:
-    """The int32 parameter array matching csrc/tilescan.cu::TileParams."""
+    """The int32 parameter array matching csrc/tilescan.cu::TileParams,
+    built once a parameter set (TileParams is frozen, hashed by identity)."""
     return np.ascontiguousarray(np.concatenate([
         np.asarray([p.k, p.mc, p.m_adc, p.edmax, WI_CONFIRM], np.int32),
         p.peq_adc[:, 0].view(np.int32)]))
@@ -133,14 +146,18 @@ def kernel_params(p: TileParams) -> np.ndarray:
 
 def tile_scan(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
     """Chimera scan of nibble tile rows [T, TILE/2 + 16] uint8 -> [3, T]
-    int32 (n, split0, split1)."""
+    int32 (n, split0, split1). CPU tensors take the plain version; CUDA
+    tensors launch csrc/tilescan.cu on the rows as they are (contiguous,
+    16-byte aligned: the kernel stages them with 16-byte loads)."""
     if rows.dim() != 2 or rows.shape[1] != ROW_BYTES:
         raise ValueError(f"rows must be [T, {ROW_BYTES}], "
                          f"got {tuple(rows.shape)}")
     if rows.device.type == "cpu":
         return tile_scan_plain(rows, p)
-    if rows.dtype != torch.uint8:
-        raise ValueError("rows must be uint8")
+    if rows.dtype != torch.uint8 or not rows.is_contiguous():
+        raise ValueError("rows must be contiguous uint8")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must start on a 16-byte boundary")
     if not (1 <= p.k <= 31 and 1 <= p.m_adc <= 31):
         raise NotImplementedError(
             f"tile kernel takes k <= 31 and an adapter <= 31 bases "
@@ -149,10 +166,9 @@ def tile_scan(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
     out = torch.empty((3, T), dtype=torch.int32, device=rows.device)
     if T == 0:
         return out
-    rows_tm = rows.t().contiguous()           # text-major: coalesced loads
     prm = kernel_params(p)
     fn = _build.bind("tilescan", "tilescan_launch", 3, 2)
-    _build.check(fn(rows_tm.data_ptr(), out.data_ptr(), prm.ctypes.data, T,
+    _build.check(fn(rows.data_ptr(), out.data_ptr(), prm.ctypes.data, T,
                     prm.size, _build.stream_handle(rows.device)), "tilescan")
     tile_scan.launches += 1
     return out

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from sicelore_tpu.ops import bcsearch as jax_bc
 from sicelore_tpu.ops import editdist as jax_ed
 from sicelore_tpu_torch.ops import bcsearch, editdist
@@ -166,3 +167,179 @@ def test_myers_win1_rejects_what_the_kernel_does_not_take():
         editdist.myers_win1(torch.zeros((4, 0), dtype=torch.int8), peq, 8)
     with pytest.raises(ValueError, match=r"\[4, 1\]"):
         editdist.myers_win1(w, np.zeros((4, 2), np.uint32), 8)
+
+
+# ---- a numpy model of csrc/win1.cu's staging: a block's span of ROWS x W
+# bytes copied with 16-byte loads (byte loads before the first aligned
+# address and after the last), each row read back four codes a word ----
+
+ROWS, WMAX = 128, 160                      # csrc/win1.cu
+CAP = ROWS * WMAX
+NV = (CAP // 16 + ROWS - 1) // ROWS
+
+
+def _read_row(sm, rb, nc):
+    """Codes [0, nc) of the row at byte rb: aligned words and a funnel
+    shift, as run_row reads them (the word after the row may be read)."""
+    words = sm.view("<u4").astype(np.uint64)
+    w, sh = rb >> 2, np.uint64(8 * (rb & 3))
+    lo, out, c = words[w], [], 0
+    while True:
+        hi = words[w + (c >> 2) + 1]
+        word = int(((hi << np.uint64(32)) | lo) >> sh) & 0xFFFFFFFF
+        lo = hi
+        out += [(word >> (8 * u)) & 7 for u in range(4) if c + u < nc]
+        c += 4
+        if c >= nc:
+            return np.asarray(out, np.int8)
+
+
+def _win1_staged_rows(wins, base_off):
+    """The rows each thread of csrc/win1.cu reads, for windows [B, W] whose
+    first byte lies base_off bytes past a 16-byte boundary; asserts that
+    the span's every byte is loaded once, within each thread's NV loads."""
+    B, W = wins.shape
+    flat = wins.reshape(-1).view(np.uint8)
+    rows = np.empty_like(wins)
+    for b0 in range(0, B, ROWS):
+        nrows = min(ROWS, B - b0)
+        sm = np.full(CAP + 32, 0xEE, np.uint8)     # stale shared memory
+        if W <= WMAX:
+            n = nrows * W
+            span = flat[b0 * W:b0 * W + n]
+            off = (base_off + b0 * W) % 16
+            head = min(n, (16 - off) % 16)
+            nb = (n - head) // 16
+            tail0 = head + 16 * nb
+            assert nb <= NV * ROWS and head < ROWS and n - tail0 < ROWS
+            assert nb == 0 or (off + head) % 16 == 0
+            loads = np.zeros(n, int)
+            for t in range(ROWS):
+                for j in range(NV):
+                    ch = t + j * ROWS
+                    if ch < nb:
+                        a = head + 16 * ch
+                        sm[off + a:off + a + 16] = span[a:a + 16]
+                        loads[a:a + 16] += 1
+                for a in ([t] if t < head else []) + (
+                        [tail0 + t] if t < n - tail0 else []):
+                    sm[off + a] = span[a]
+                    loads[a] += 1
+            assert (loads == 1).all()
+            for r in range(nrows):
+                rows[b0 + r] = _read_row(sm, off + r * W, W)
+        else:
+            parts = [[] for _ in range(nrows)]
+            for c0 in range(0, W, WMAX):
+                nc = min(WMAX, W - c0)
+                for r in range(nrows):
+                    sm[r * WMAX:r * WMAX + nc] = flat[(b0 + r) * W + c0:
+                                                      (b0 + r) * W + c0 + nc]
+                for r in range(nrows):
+                    parts[r].append(_read_row(sm, r * WMAX, nc))
+            for r in range(nrows):
+                rows[b0 + r] = np.concatenate(parts[r])
+    return rows
+
+
+@pytest.mark.parametrize("W", [1, 90, 110, 160, 200])
+@pytest.mark.parametrize("B", [1, 37, 129])
+def test_win1_span_staging_model_matches_plain(B, W):
+    """Every row comes back intact from the staged span, whatever the
+    span's start modulo 16 (the tensor's own offset and b0 x W), and the
+    search over the rows read back through the six-entry match table
+    equals myers_win1_plain, for B = 1, 37, 129 (two blocks, the second of
+    one row) and W = 1, 90, 110, 160 (one round) and 200 (rounds)."""
+    m = min(22, max(W, 1))
+    for off in (0, 1, 7, 13):
+        wins, pat = chip_smoke.win1_edge_windows(B, W, m, off)
+        got = _win1_staged_rows(wins, off)
+        np.testing.assert_array_equal(got, wins)
+        peq = editdist.build_peq(pat[None, :])
+        table = np.concatenate([peq[:, 0], np.zeros(4, np.uint32)])
+        np.testing.assert_array_equal(
+            table[got & 7], editdist.peq_tensor(peq, "cpu")[
+                torch.from_numpy(wins).long(), 0].numpy().astype(np.uint32))
+        ed, pos = editdist.myers_win1_plain(torch.from_numpy(got), peq, m)
+        ed_j, pos_j = jax_ed.myers_sweep(jnp.asarray(wins), jnp.asarray(peq),
+                                         m)
+        np.testing.assert_array_equal(ed.numpy(), np.asarray(ed_j)[:, 0])
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(pos_j)[:, 0])
+
+
+def test_win1_edge_shapes_hold_unaligned_spans():
+    """chip_smoke.py's window-search edge sets put block spans at every
+    start modulo 16 and hold an all-PAD row each."""
+    starts = set()
+    for B, W, m, off in chip_smoke.WIN1_EDGE_SHAPES:
+        starts |= {(off + b0 * W) % 16 for b0 in range(0, B, ROWS)}
+        wins, _ = chip_smoke.win1_edge_windows(B, W, m, off)
+        assert wins.shape == (B, W) and (wins[B // 2] == 5).all()
+        v = chip_smoke.unaligned_rows(wins, off, "cpu")
+        assert v.data_ptr() % 16 == off and v.is_contiguous()
+        assert torch.equal(v, torch.from_numpy(wins))
+    assert len(starts) >= 8 and 0 in starts
+
+
+def _win1_columns_model(rows, peq, m):
+    """csrc/win1.cu's column arithmetic on rows [B, W] of codes 0..5: the
+    pattern in the top m bits (low bits PV = 1, MV = 0), the score's step
+    from the sign bits, match masks from the 64-entry pair table, and the
+    best as the minimum of score x 2^26 + column, four columns a group."""
+    B, W = rows.shape
+    KEY = np.uint32(1 << 26)
+    up = np.uint32(32 - m)
+    eq = [np.uint32(int(peq[c, 0]) << int(up) & 0xFFFFFFFF) if c < 4
+          else np.uint32(0) for c in range(8)]
+    pair = np.asarray([(eq[t & 7], eq[t >> 3]) for t in range(64)],
+                      np.uint32)
+    PV = np.full(B, 0xFFFFFFFF, np.uint32)
+    MV = np.zeros(B, np.uint32)
+    score = np.full(B, m, np.uint32)
+    best = np.full(B, m, np.uint32) * KEY
+    one = np.uint32(1)
+
+    def step(e):
+        nonlocal PV, MV, score
+        Xv = e | MV
+        Xh = (((e & PV) + PV) ^ PV) | e
+        Ph = MV | ~(Xh | PV)
+        Mh = PV & Xh
+        score = score + (Ph >> np.uint32(31)) - (Mh >> np.uint32(31))
+        Ph, Mh = Ph << one, Mh << one
+        PV = Mh | ~(Xv | Ph)
+        MV = Ph & Xv
+        return score * KEY
+
+    x = rows.astype(np.uint32)
+    c = 0
+    while c + 4 <= W:
+        word = (x[:, c] | x[:, c + 1] << 8 | x[:, c + 2] << 16
+                | x[:, c + 3] << 24)
+        e01 = pair[(word | (word >> 5)) & 63]
+        e23 = pair[((word >> 16) | (word >> 21)) & 63]
+        g = step(e01[:, 0])
+        g = np.minimum(g, step(e01[:, 1]) + np.uint32(1))
+        g = np.minimum(g, step(e23[:, 0]) + np.uint32(2))
+        g = np.minimum(g, step(e23[:, 1]) + np.uint32(3))
+        best = np.minimum(best, g + np.uint32(c))
+        c += 4
+    for u in range(W - c):
+        best = np.minimum(best, step(pair[x[:, c + u] & 7, 0])
+                          + np.uint32(c + u))
+    none = best == np.uint32(m) * KEY
+    return (np.where(none, m, best // KEY).astype(np.int32),
+            np.where(none, -1, best % KEY).astype(np.int32))
+
+
+@pytest.mark.parametrize("B,W,m,off", chip_smoke.WIN1_EDGE_SHAPES)
+def test_win1_column_model_matches_plain(B, W, m, off):
+    """The kernel's top-aligned pattern, pair table and keyed best give
+    myers_win1_plain's (ed, end column) on the edge sets, m = 1..32."""
+    wins, pat = chip_smoke.win1_edge_windows(B, W, m, off)
+    peq = editdist.build_peq(pat[None, :])
+    ed, pos = _win1_columns_model(wins, peq, m)
+    ed_p, pos_p = editdist.myers_win1_plain(torch.from_numpy(wins), peq, m)
+    np.testing.assert_array_equal(ed, ed_p.numpy())
+    np.testing.assert_array_equal(pos, pos_p.numpy())
+    assert (pos == -1).any() and (B < 37 or W < m or (pos >= 0).any())

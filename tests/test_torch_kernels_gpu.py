@@ -273,6 +273,61 @@ def test_tile_kernel_matches_plain(dev, reads):
     assert torch.equal(k, pl) and int((k[0] > 0).sum()) > 0
 
 
+@pytest.mark.parametrize("T", [1, 33, 129])
+def test_tile_kernel_edge_rows_match_plain(dev, T):
+    """csrc/tilescan.cu on chip_smoke.py's edge tiles (0, 1, 3 and 5 runs a
+    direction, sites at own_lo, own_hi - 1 and tlen - k, confirm windows
+    off both ends, an all-PAD tile), one partial block and ragged ones."""
+    rows = torch.from_numpy(chip_smoke.tile_edge_rows(129)[:T])
+    p = ts.tile_params(PipelineConfig())
+    before = ts.tile_scan.launches
+    k = ts.tile_scan(rows.to(dev), p)
+    torch.cuda.synchronize()
+    assert ts.tile_scan.launches == before + 1
+    pl = ts.tile_scan_plain(rows, p)
+    assert k.dtype == torch.int32 and torch.equal(k.cpu(), pl)
+
+
+@pytest.mark.parametrize("k,frac", [(9, 0.7), (16, 0.7), (31, 0.5),
+                                    (15, 0.6)])
+def test_tile_kernel_other_windows_match_plain(dev, k, frac):
+    """Window lengths and thresholds other than the default (k = 15,
+    mc = 11, compiled into the kernel): the kernel's general path."""
+    cfg = PipelineConfig()
+    cfg.polyat.internal_pat_length = k
+    cfg.polyat.internal_fraction_at_in_polyat = frac
+    p = ts.tile_params(cfg)
+    rows = torch.from_numpy(chip_smoke.tile_edge_rows(129))
+    got = ts.tile_scan(rows.to(dev), p)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ts.tile_scan_plain(rows, p))
+
+
+def test_tile_kernel_rejects_other_inputs(dev):
+    p = ts.tile_params(PipelineConfig())
+    rows = torch.zeros((4, ts.ROW_BYTES + 16), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        ts.tile_scan(rows.view(-1)[1:1 + 3 * ts.ROW_BYTES].view(3, -1), p)
+    with pytest.raises(ValueError, match="contiguous"):
+        ts.tile_scan(rows[:, :ts.ROW_BYTES], p)
+
+
+@pytest.mark.parametrize("B,W,m,off", chip_smoke.WIN1_EDGE_SHAPES)
+def test_win1_kernel_unaligned_spans_match_plain(dev, B, W, m, off):
+    """csrc/win1.cu on rows whose data starts `off` bytes past a 16-byte
+    boundary (block spans at every start modulo 16), B = 1 / 37 / 129 / 300,
+    W = 1 / 90 / 110 / 160 / 200 (rounds)."""
+    wins, pat = chip_smoke.win1_edge_windows(B, W, m, off)
+    peq = editdist.build_peq(pat[None, :])
+    x = chip_smoke.unaligned_rows(wins, off, dev)
+    assert x.data_ptr() % 16 == off
+    ed, pos = editdist.myers_win1(x, peq, m)
+    torch.cuda.synchronize()
+    ed_p, pos_p = editdist.myers_win1_plain(torch.from_numpy(wins), peq, m)
+    assert torch.equal(ed.cpu(), ed_p) and torch.equal(pos.cpu(), pos_p)
+    assert (int(ed[B // 2]), int(pos[B // 2])) == (m, -1)
+
+
 def _pairs(seed, n_mol, length, rate, Lc, W, dev):
     """Pair tensors on the card: noisy molecules plus an infeasible pair,
     insertion runs past K_INS, a read with N and an empty read."""
