@@ -7,7 +7,12 @@ Phases (one JSON line each, with its seconds):
             whether the native host codecs loaded, the kernel build time.
   kernels   every CUDA kernel against its plain PyTorch version on the
             card, at the main paths' shapes: the edge scan over a
-            32,768-read chunk, the whitelist sweep of its BC windows against
+            32,768-read 3p chunk and a 32,768-read 5p chunk (encode_two_half's
+            rows [B, 2E] as they are), and over the edge set
+            (edge_set_reads: lengths 0, under k, E, 2E and over 2E, all-N
+            reads, runs at win_p and at word borders, adapter windows off
+            both read ends; 3p and 5p, launches of 1, 37, 129 reads and all),
+            the whitelist sweep of its BC windows against
             8,192 and 49,152 barcodes, the chimera scan over all tiles of
             the chunk; the band aligner over 8,192 pairs at (Lc = 512,
             W = 32), 8,192 at (Lc = 1,024, W = 64) and 256 at (Lc = 2,048,
@@ -20,8 +25,8 @@ Phases (one JSON line each, with its seconds):
             edge tiles (tile_edge_rows: 0, 1, 3 and 5 runs a direction,
             sites at own_lo, own_hi - 1 and tlen - k, confirm windows off
             both tile ends, an all-PAD tile) in launches of 129 and 1
-            tiles. `wrapper_host_us`: the host time of one `myers_win1`
-            and one `tile_scan` call. The sweep runs with and without the
+            tiles. `wrapper_host_us`: the host time of one `myers_win1`,
+            one `tile_scan` and one `edge_scan2` call. The sweep runs with and without the
             end position (the main path asks for none), also over 4,096
             reads (a small launch must keep the card full), on small cases
             that its barcode slices could get wrong (SWEEP_EDGE_CASES) and
@@ -34,12 +39,13 @@ Phases (one JSON line each, with its seconds):
             content; `device_ms` is the device time of a call's launches
             with no host time in it (CUDA events around calls queued behind
             a spin kernel), `burst_ms` the mean of back-to-back calls as the
-            host issues them (band aligner, tile scan, window search).
-            Beside each time stands the kernel's bound on this card (see
-            BOUNDS below); a kernel faster than its bound ends the run. The
-            composed 5p edge body (torch ops + three window searches) is
-            timed at 32,768 reads beside the fused 3p kernel, with a
-            sync-timed split of one call by scan op.
+            host issues them (edge scan, band aligner, tile scan, window
+            search). Beside each time stands the kernel's bound on this card
+            (see BOUNDS below); a kernel faster than its bound ends the run.
+            The composed edge body (torch ops + three window searches; the
+            route of configs outside the fused kernel's envelope) is timed
+            on the 5p chunk beside the fused kernel, with a sync-timed split
+            of one call by scan op.
   pipeline  `ScanFastqPipeline.run` on `cuda` over a synthetic run of
             131,072 reads in 4 fastq files (8,192 cells drawn from a
             65,536-barcode whitelist; 4% error, ~6% 2-8 kb reads, ~2%
@@ -52,9 +58,9 @@ Phases (one JSON line each, with its seconds):
             barcodes agreeing with the generator's truth.
   pipeline_5p  the same run with `PipelineConfig(chemistry="5p")` over
             131,072 synthetic 5p reads (`synth.make_read_5p`, the same mix):
-            the edge scan takes the composed body, so the window-search
-            kernel, the composed body, the sweep and the tile scan must have
-            launched, the fused edge kernel and every plain version not.
+            the fused edge kernel, the sweep and the tile scan must have
+            launched; the window search, the composed body and every plain
+            version not.
             Then the CUDA-vs-CPU byte parity on a 4,096-read subset.
   v1_control  the random-barcode negative control (`random_barcode=True`,
             fixed seed, max ED 1) over one 3p file of 32,768 reads on `cuda`:
@@ -104,10 +110,38 @@ Operation counts, from the kernels' own arithmetic:
   Myers column (csrc/myers.cuh myers_step): 18, the count the JAX
     package's bench.py uses for the same step (the step's 21 C operators
     less the three NOTs, which fold into three-input logic operations).
-  edgescan, a read: four Myers searches (3 x awin + twin columns), two
-    32-row run recurrences (awin + twin columns x 32 rows x 3), the bailout
-    pairs (twin x npairs x 4) and the two run scans (E + win_p + k columns
-    x 6; the head scan stops after win_p windows when it finds no run).
+  edgescan, a read (edge_scan_work, from this run's reads; held to a
+    direct count by tests/test_torch_edgescan_words.py):
+    - the two run scans, each read from its read end (the head for T, the
+      tail backwards for A) up to where it decides: the first start whose
+      window is not passing after the run, or the last start below win_p
+      (and inside the read) when there is no run, plus k - 1 columns;
+      counted in 32-column words of the word form (csrc/edgescan.cu), the
+      cheapest form this package knows, a three-input logic operation as
+      one, k = 15: the base mask 49 (a 4-code word: xor, add, and, the
+      bit-gathering multiply, shift; seven merges; the not and the read
+      limit), the window test 54 (doublings to 2, 4, 8 columns 3 + 6 + 9,
+      the 4-, 2-, 1-column sums added at their offsets 11 + 11 + 10, the
+      carry test 4): 103 a word, where the scalar scan takes 6 a column
+      (192 a word).
+    - the Myers searches over their window columns inside the read only
+      (a column outside holds PAD: it leaves the state as it is before the
+      first code and lowers no score after the last), 18 a
+      column: the sense adapter window of each side whose run was found
+      (5p: the REV side's always, its end column is ROW_AE), the chosen
+      complete-adapter window, the TSO window.
+    - the complete adapter's longest run, a column of that window: the
+      least of the threshold-word form over the levels these data need
+      (2 a level, levels = the run found + 1, at most m), the bit-sliced
+      counter of csrc/edgescan.cu (EDGE_RUN_BITSLICE_OPS: five shifts, the
+      five planes' increment and reset 8, the test against best + 1 five
+      majorities, the best's mask 2 and its decrement 9: 29) and the
+      scalar form (3 a pattern row).
+    - the TSO bailout, a column of the TSO window: 2 a threshold level
+      over the levels these data need (the window's longest run + 1, at
+      most c1) and 2 a threshold pair.
+    Bytes: the columns those scans and windows read (their union on each
+    half), 4 a read of lens and the output rows.
   bcsweep: reads x barcodes x window columns x 18.
   tilescan: the word form of the detection (csrc/tilescan.cu), the
     cheapest form this package knows, counted with a three-input logic
@@ -186,6 +220,9 @@ INT32_LANES_PER_SM = 128
 MYERS_OPS = 18
 BAND_CELL_OPS = 13
 TILE_WORD_OPS = 210         # a 32-column word of the tile detection, k = 15
+EDGE_WORD_OPS = 103         # a 32-column word of an edge run scan, k = 15
+EDGE_RUN_BITSLICE_OPS = 29  # a column of the bit-sliced longest run
+EDGE_PAIR_OPS = 2           # a column of one bailout threshold pair
 TILE_EDGE_N = 129           # edge tiles: four blocks of 32 and one of 1
 HOST_CALLS = 1_000          # wrapper calls timed on the host clock
 SPIN_CYCLES = 1 << 24       # device_ms's first spin: ~8.5 ms at 1.98 GHz
@@ -339,25 +376,194 @@ def tile_scan_work(rows, p) -> tuple[int, int, int]:
             int(n_bytes))
 
 
+def edge_set_reads(rng, chem, n=96):
+    """Reads whose edges the kernel's words, windows and blocks could get
+    wrong: both strands, long and short reads, lengths 0, under k, exactly
+    E, 2E and over 2E, all-N reads, polyA/T runs that start or end at the
+    search region's limit (win_p) and at 32-column word borders, runs at
+    the very read ends (adapter windows running off both ends), N inside
+    runs."""
+    from sicelore_tpu_torch.ops.edgescan import E
+    from sicelore_tpu_torch.utils import synth
+    make = synth.make_read_5p if chem == "5p" else synth.make_read
+    wl = synth.make_whitelist(rng, 16)
+    k, win_p = 15, 150
+    seqs = []
+    for i in range(n):
+        clen = int(rng.integers(40, 600)) if i % 4 else \
+            int(rng.integers(900, 2000))
+        seqs.append(make(rng, wl[i % 16], cdna_len=clen, error_rate=0.05,
+                         reverse=bool(i % 2))["seq"])
+    junk = lambda L: synth.random_seq(rng, L).encode()   # noqa: E731
+    for L in (0, 1, 7, 14, 15, 16, E - 1, E, E + 1, 2 * E, 2 * E + 1, 700):
+        seqs.append(junk(L))
+    for L in (20, E, 3 * E):
+        seqs.append(b"N" * L)
+    # polyT starts around win_p - 1 and word borders (head), polyA ends
+    # the same distances from the read end (tail)
+    for s0 in (0, 1, 31, 32, 33, 63, 64, win_p - k - 1, win_p - k,
+               win_p - 1, win_p, win_p + 1, 160, 250):
+        for run in (k - 4, k, k + 1, 40):
+            body = bytearray(junk(2 * E + 60))
+            body[s0:s0 + run] = b"T" * run
+            e = len(body) - s0
+            body[max(e - run, 0):e] = b"A" * min(run, e)
+            seqs.append(bytes(body[:max(s0 + run + 30, 120)]))
+            seqs.append(bytes(body))
+    # a run with N inside, and a run at the very end / start of a short read
+    s = bytearray(b"T" * 30 + junk(200) + b"A" * 30)
+    s[5] = s[-6] = ord("N")
+    seqs += [bytes(s), b"T" * 40, b"A" * 40, b"T" * 20 + b"A" * 20]
+    quals = [bytes(33 + (j % 40) for j in range(len(x))) for x in seqs]
+    return seqs, quals
+
+
+def edge_scan_work(codes, lens, p) -> dict:
+    """The work an edge scan of these reads needs (BOUNDS, edgescan):
+    {"operations", "bytes", "scan_columns", "window_columns"} from torch
+    ops on codes' device. codes [B, 2E] int8 (encode_two_half's rows),
+    lens [B]; p: the run's EdgeParams (k = 15, the count of
+    EDGE_WORD_OPS)."""
+    import torch
+
+    from sicelore_tpu_torch.models.readscan import gather_window
+    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import scan
+    E, k, dev = eg.E, p.k, codes.device
+    B = codes.shape[0]
+    lens = lens.to(device=dev, dtype=torch.int64)
+    hl = lens.clamp(max=E)
+    head, tail = codes[:, :E], codes[:, E:]
+    meta = eg.edge_scan2_plain(head, tail, lens.int(), p).long()
+    cols = torch.arange(E, device=dev)[None, :]
+    pos = torch.arange(E - k + 1, device=dev)[None, :]
+    lim_p = (hl - k + 1)[:, None]
+    scan_cols, first = [], []
+    for half, base in ((head, 3), (tail.flip(1), 0)):
+        ind = ((half == base) & (cols < hl[:, None])).int()
+        cs = torch.nn.functional.pad(ind.cumsum(1), (1, 0))
+        passing = ((cs[:, k:] - cs[:, :-k]) >= p.mc) & (pos < lim_p)
+        ok = passing & (pos < p.win_p)
+        found = ok.any(1)
+        j = torch.where(found, ok.int().argmax(1), -1)
+        stop_mask = torch.cat([~passing & (pos > j[:, None]),
+                               torch.ones_like(passing[:, :1])], 1)
+        stop = stop_mask.int().argmax(1)
+        n = torch.where(found, stop + k - 1,
+                        torch.minimum(torch.full_like(hl, p.win_p),
+                                      lim_p[:, 0]) - 1 + k)
+        scan_cols.append(torch.where(lim_p[:, 0] > 0, n, 0).minimum(hl))
+        after = (ind > 0) & (cols >= j[:, None])
+        first.append(torch.where(found, after.int().argmax(1), -1))
+    lim = (hl, torch.full_like(hl, E))
+
+    def inside(h, s, W):
+        """(first column, columns) of a window inside [0, lim)."""
+        a = (-s).clamp(min=0)
+        n = (torch.minimum(torch.full_like(s, W), lim[h] - s) - a).clamp(
+            min=0)
+        return s + a, n
+
+    spans = [[(torch.zeros_like(hl), scan_cols[0])],
+             [(torch.zeros_like(hl), scan_cols[1])]]
+    win_cols = torch.zeros_like(hl)
+    zero = torch.zeros_like(hl)
+    ad_cols = 0
+    for side in (0, 1):
+        hs = (1 - side) if p.is5p else side
+        s = zero if p.is5p else first[side] - p.awin
+        need = (first[side] >= 0) | (p.is5p and side == 0)
+        a, n = inside(hs, s, p.awin)
+        n = torch.where(need, n, 0)
+        win_cols += n
+        ad_cols += int(n.sum())
+        spans[hs].append((a, n))
+    is_fwd = meta[eg.ROW_IS_FWD] != 0
+    us = is_fwd.long()
+    uhalf = 1 - us if p.is5p else us
+    us_s = zero if p.is5p else torch.where(is_fwd, first[1], first[0]) \
+        - p.awin
+    n_used = torch.zeros_like(hl)
+    for h in (0, 1):
+        a, n = inside(h, us_s, p.awin)
+        n = torch.where(uhalf == h, n, 0)
+        n_used += n
+        spans[h].append((a, n))
+    t0 = (torch.where(meta[eg.ROW_STRANDED] != 0, meta[eg.ROW_AE], -1)
+          + 1 + p.bc_len) if p.is5p else zero
+    n_tso = torch.zeros_like(hl)
+    for h in (0, 1):
+        a, n = inside(h, t0, p.twin)
+        n = torch.where(is_fwd == (h == 0), n, 0)
+        n_tso += n
+        spans[h].append((a, n))
+    win_cols += n_used + n_tso
+    levels = (meta[eg.ROW_AD_RUN] + 1).clamp(max=p.m_adc)
+    run_ops = (2 * levels).clamp(max=min(EDGE_RUN_BITSLICE_OPS,
+                                         3 * p.m_adc))
+    w5 = torch.where(is_fwd[:, None],
+                     gather_window(head, hl, t0, p.twin),
+                     gather_window(tail, torch.full_like(hl, E),
+                                   E - p.twin - t0, p.twin, rc=True))
+    tso_best, _ = scan.match_run_stats(w5, p.tso_codes, p.m_tso)
+    tl = (tso_best.long() + 1).clamp(max=p.c1)
+    npairs = len(scan.bail_pairs(p.c1, p.c2))
+    words = sum(((c + 31) // 32).sum() for c in scan_cols)
+    ops = (int(words) * EDGE_WORD_OPS + int(win_cols.sum()) * MYERS_OPS
+           + int((n_used * run_ops).sum())
+           + int((n_tso * (2 * tl + EDGE_PAIR_OPS * npairs)).sum()))
+    # bytes: the union of the columns each half's scan and windows read
+    cover = 0
+    for sp in spans:
+        marks = torch.zeros((B, E + 1), dtype=torch.int32, device=dev)
+        for a, n in sp:
+            live = n > 0
+            a0 = torch.where(live, a.clamp(0, E), 0)
+            marks.scatter_add_(1, a0[:, None], live.int()[:, None])
+            marks.scatter_add_(1, torch.where(live, (a + n).clamp(0, E),
+                                              0)[:, None],
+                               -live.int()[:, None])
+        cover += int((marks.cumsum(1)[:, :-1] > 0).sum())
+    n_bytes = cover + 4 * B + 4 * B * (eg.ROW_BC0 + p.bw)
+    return {"operations": ops, "bytes": n_bytes,
+            "scan_columns": int(sum(c.sum() for c in scan_cols)),
+            "scan_words": int(words),
+            "window_columns": int(win_cols.sum()),
+            "adapter_columns": ad_cols, "used_columns": int(n_used.sum()),
+            "tso_columns": int(n_tso.sum())}
+
+
 def wrapper_host_us(dev, calls: int = HOST_CALLS) -> dict:
     """Host microseconds of one wrapper call: `calls` calls back to back on
     the host clock, no sync between them (the launches queue up), one
-    window of 90 columns for `myers_win1`, one tile for `tile_scan`; the
-    least of three rounds. What the wrapper's Python, its checks, the
-    allocation of its output and the launch cost the caller."""
+    window of 90 columns for `myers_win1`, one tile for `tile_scan`, one
+    read for `edge_scan2`; the least of three rounds. What the wrapper's
+    Python, its checks, the allocation of its output and the launch cost
+    the caller."""
     import numpy as np
     import torch
 
     from sicelore_tpu_torch.ops import editdist
+    from sicelore_tpu_torch.ops import edgescan as eg
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
+    from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
+    from sicelore_tpu_torch.utils import dna
     from sicelore_tpu_torch.utils.config import PipelineConfig
     peq = editdist.build_peq(np.arange(16, dtype=np.int8)[None, :] % 4)
     w = torch.zeros((1, 90), dtype=torch.int8, device=dev)
     rows = torch.from_numpy(tile_edge_rows(2)[1:]).to(dev)
     tp = ts.tile_params(PipelineConfig())
+    read = torch.full((1, 2 * eg.E), dna.PAD, dtype=torch.int8, device=dev)
+    rlen = torch.zeros(1, dtype=torch.int32, device=dev)
+    ep = eg.edge_params(PipelineConfig())
+    try:
+        edge_scan2(read, rlen, ep)
+    except ValueError:      # a tree whose edge scan takes [2E, B]
+        read = read.t().contiguous()
     out = {}
     for name, fn in (("win1", lambda: editdist.myers_win1(w, peq, 16)),
-                     ("tilescan", lambda: ts.tile_scan(rows, tp))):
+                     ("tilescan", lambda: ts.tile_scan(rows, tp)),
+                     ("edgescan", lambda: edge_scan2(read, rlen, ep))):
         best = None
         for _ in range(3):
             fn()
@@ -791,7 +997,7 @@ def consensus_split(bam, out_fastq) -> dict:
     return {k: round(v, 3) for k, v in secs.items()}
 
 
-def composed_split(codes_tm, lens_d, ep) -> dict:
+def composed_split(codes, lens_d, ep) -> dict:
     """One call of the composed edge body with a sync-timed wrapper around
     each scan op: milliseconds by op, and of the whole call."""
     import torch
@@ -813,7 +1019,7 @@ def composed_split(codes_tm, lens_d, ep) -> dict:
     torch.cuda.synchronize()
     t = time.perf_counter()
     try:
-        edge_scan2(codes_tm, lens_d, ep)
+        eg.edge_scan2_composed(codes[:, :eg.E], codes[:, eg.E:], lens_d, ep)
         torch.cuda.synchronize()
     finally:
         for u in undo:
@@ -1057,43 +1263,78 @@ def _run(pool, wl, cells, work, dev) -> int:
     chunk = next(fastq.read_fastq(work / "run" / "reads0.fastq",
                                   READS_PER_FILE))
     B = len(chunk)
-    codes, _, lens, _ = eg.encode_two_half(chunk.seqs, chunk.quals)
-    codes_tm = torch.from_numpy(codes).to(dev).t().contiguous()
+    codes_np, _, lens, _ = eg.encode_two_half(chunk.seqs, chunk.quals)
+    codes = torch.from_numpy(codes_np).to(dev)
     lens_d = torch.from_numpy(lens).to(dev)
+    cfg5 = PipelineConfig(chemistry="5p")
+    ep5 = eg.edge_params(cfg5)
+    chunk5 = next(fastq.read_fastq(work / "run5p" / "reads0.fastq",
+                                   READS_PER_FILE))
+    codes5_np, _, lens5, _ = eg.encode_two_half(chunk5.seqs, chunk5.quals)
+    codes5 = torch.from_numpy(codes5_np).to(dev)
+    lens5_d = torch.from_numpy(lens5).to(dev)
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
 
-    def mutate_reads(ct):
+    def mutate_reads(ct, ld):
         """One substituted base per read, inside the read (fresh content)."""
         ct = ct.clone()
-        col = (torch.rand(B, device=dev, generator=g)
-               * torch.clamp(lens_d, 1, eg.E)).long()
-        col = torch.where(torch.rand(B, device=dev, generator=g) < 0.5, col,
+        n = ct.shape[0]
+        ar = torch.arange(n, device=dev)
+        col = (torch.rand(n, device=dev, generator=g)
+               * torch.clamp(ld, 1, eg.E)).long()
+        col = torch.where(torch.rand(n, device=dev, generator=g) < 0.5, col,
                           2 * eg.E - 1 - col)
-        val = torch.randint(0, 4, (B,), device=dev, generator=g,
+        val = torch.randint(0, 4, (n,), device=dev, generator=g,
                             dtype=torch.int8)
-        keep = ct[col, torch.arange(B, device=dev)] != dna.PAD
-        ct[col[keep], torch.arange(B, device=dev)[keep]] = val[keep]
+        keep = ct[ar, col] != dna.PAD
+        ct[ar[keep], col[keep]] = val[keep]
         return ct
 
     ep = eg.edge_params(cfg)
-    variants = [codes_tm] + [mutate_reads(codes_tm)
-                             for _ in range(TIMED_CALLS)]
     results = {}
-    results["edgescan"] = compare(
-        "edgescan", lambda c: edge_scan2(c, lens_d, ep),
-        lambda c: eg.edge_scan2_plain(c[:eg.E].t(), c[eg.E:].t(), lens_d, ep),
-        variants)
-    meta = edge_scan2(codes_tm, lens_d, ep)
-    edge_ops = B * (
-        (3 * ep.awin + ep.twin) * MYERS_OPS
-        + (ep.awin + ep.twin) * 32 * 3
-        + ep.twin * len(scan.bail_pairs(ep.c1, ep.c2)) * 4
-        + (eg.E + ep.win_p + ep.k) * 6)
-    results["edgescan"].update(bound(nbytes(codes_tm, lens_d, meta),
-                                     edge_ops, int32_hz))
-    results["edgescan"]["device_ms"] = device_ms(
-        lambda c: edge_scan2(c, lens_d, ep), variants[1:])
+    for key, c0, ld, pe in (("edgescan", codes, lens_d, ep),
+                            ("edgescan_5p", codes5, lens5_d, ep5)):
+        # the bound from the chunk as it is (each variant differs from it
+        # by one base a read: its work stands for all)
+        if pe.k != 15:
+            raise SystemExit(f"EDGE_WORD_OPS counts k = 15, not {pe.k}")
+        ework = edge_scan_work(c0, ld, pe)
+        evars = [c0] + [mutate_reads(c0, ld) for _ in range(TIMED_CALLS)]
+        results[key] = compare(
+            key, lambda c: edge_scan2(c, ld, pe),
+            lambda c: eg.edge_scan2_plain(c[:, :eg.E], c[:, eg.E:], ld, pe),
+            evars)
+        results[key].update(bound(ework["bytes"], ework["operations"],
+                                  int32_hz))
+        results[key].update({"reads": c0.shape[0],
+                             "ops_per_read": ework["operations"]
+                             / c0.shape[0],
+                             **{k: ework[k] for k in (
+                                 "scan_columns", "scan_words",
+                                 "window_columns", "adapter_columns",
+                                 "used_columns", "tso_columns")}})
+        results[key]["device_ms"] = device_ms(
+            lambda c: edge_scan2(c, ld, pe), evars[1:])
+        results[key]["burst_ms"] = burst_ms(
+            lambda c: edge_scan2(c, ld, pe), evars[1:])
+        del evars
+    # the reads the kernel's words, windows and blocks could get wrong, in
+    # launches of 1, 37, 129 reads and all of them
+    edge_set = {}
+    for chem, pe in (("3p", ep), ("5p", ep5)):
+        seqs, quals = edge_set_reads(np.random.default_rng(SEED + 700), chem)
+        c_np, _, l_np, _ = eg.encode_two_half(seqs, quals)
+        for n in (1, 37, 129, len(seqs)):
+            got = edge_scan2(torch.from_numpy(c_np[:n]).to(dev),
+                             torch.from_numpy(l_np[:n]).to(dev), pe)
+            ref = eg.edge_scan2_plain(torch.from_numpy(c_np[:n, :eg.E]),
+                                      torch.from_numpy(c_np[:n, eg.E:]),
+                                      torch.from_numpy(l_np[:n]), pe)
+            edge_set[f"{chem}_b{n}"] = int((got.cpu() != ref).sum())
+    results["edgescan_edge_cases"] = {"mismatches": sum(edge_set.values()),
+                                      "cases": edge_set}
+    meta = edge_scan2(codes, lens_d, ep)
     wins = meta[eg.ROW_BC0:].to(torch.uint8).contiguous()
 
     def mutate_wins(w):
@@ -1228,14 +1469,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     # the window search at the shapes its paths give it: the 5p composed
     # edge body's three searches over one chunk, the confirm windows of
     # the chunk's tiles
-    cfg5 = PipelineConfig(chemistry="5p")
-    ep5 = eg.edge_params(cfg5)
-    chunk5 = next(fastq.read_fastq(work / "run5p" / "reads0.fastq",
-                                   READS_PER_FILE))
-    codes5, _, lens5, _ = eg.encode_two_half(chunk5.seqs, chunk5.quals)
-    codes5_tm = torch.from_numpy(codes5).to(dev).t().contiguous()
-    lens5_d = torch.from_numpy(lens5).to(dev)
-    head5, tail5 = codes5_tm[:eg.E].t(), codes5_tm[eg.E:].t()
+    head5, tail5 = codes5[:, :eg.E], codes5[:, eg.E:]
     hl5 = lens5_d.clamp(max=eg.E)
     el5 = torch.full_like(lens5_d, eg.E)
     w_ad = torch.cat([
@@ -1303,17 +1537,20 @@ def _run(pool, wl, cells, work, dev) -> int:
     if (int(ed_pad[36]), int(pos_pad[36])) != (ep5.m_ad, -1):
         raise SystemExit("win1: an all-PAD row must report (m, -1)")
 
-    # the composed 5p edge body (torch ops + three window searches) beside
-    # the fused 3p kernel, both over one 32,768-read chunk
+    # the composed edge body (torch ops + three window searches; the route
+    # of configs outside the fused kernel's envelope) on the 5p chunk,
+    # beside the fused kernel's edgescan_5p on the same reads
     results["edge_composed_5p"] = compare(
-        "edge_composed_5p", lambda c: edge_scan2(c, lens5_d, ep5),
-        lambda c: eg.edge_scan2_plain(c[:eg.E].t(), c[eg.E:].t(), lens5_d,
+        "edge_composed_5p",
+        lambda c: eg.edge_scan2_composed(c[:, :eg.E], c[:, eg.E:], lens5_d,
+                                         ep5),
+        lambda c: eg.edge_scan2_plain(c[:, :eg.E], c[:, eg.E:], lens5_d,
                                       ep5),
-        [codes5_tm, codes5_tm.clone()])
+        [codes5, codes5.clone()])
     results["edge_composed_5p"]["split_ms"] = composed_split(
-        codes5_tm, lens5_d, ep5)
-    del variants, wvars, rows_d, meta, wins, codes_tm, tcodes
-    del win1_shapes, w_ad, w_tso, w_conf, codes5_tm, head5, tail5
+        codes5, lens5_d, ep5)
+    del wvars, rows_d, meta, wins, codes, tcodes
+    del win1_shapes, w_ad, w_tso, w_conf, codes5, head5, tail5
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(SEED + 100)
@@ -1466,10 +1703,9 @@ def _run(pool, wl, cells, work, dev) -> int:
           "assigned_share": round(stats5.bc_assigned / total, 4),
           "stats": stats5.to_json(), "launches": launches5,
           "plain_launches": plain5, "s": round(time.time() - t0, 2)})
-    if (min(launches5[k] for k in ("win1", "edge_composed", "bcsweep",
-                                   "tilescan")) < 1
-            or launches5["win1"] != 3 * launches5["edge_composed"]
-            or launches5["edgescan"] or any(plain5.values())):
+    if (min(launches5[k] for k in ("edgescan", "bcsweep", "tilescan")) < 1
+            or launches5["win1"] or launches5["edge_composed"]
+            or any(plain5.values())):
         raise SystemExit(f"5p path launches {launches5}, plain {plain5}")
     if (stats5.total_reads != total or stats5.stranded < 0.8 * total
             or stats5.bc_assigned < 0.6 * total):
@@ -1678,6 +1914,9 @@ def _run(pool, wl, cells, work, dev) -> int:
 
     src = {"edgescan": ("sicelore_tpu_torch/csrc/edgescan.cu",
                         "sicelore_tpu/ops/edgescan_tpu.py:87", "edgescan"),
+           "edgescan_5p": ("sicelore_tpu_torch/csrc/edgescan.cu",
+                           "sicelore_tpu/ops/edgescan_tpu.py:87",
+                           "edgescan_5p"),
            "bcsweep": ("sicelore_tpu_torch/csrc/bcsweep.cu",
                        "sicelore_tpu/ops/bcsearch.py:34",
                        f"bcsweep_{SWEEP_LISTS[0]}"),
@@ -1688,7 +1927,10 @@ def _run(pool, wl, cells, work, dev) -> int:
                          "bandalign_512_32"),
            "win1": ("sicelore_tpu_torch/csrc/win1.cu",
                     "sicelore_tpu/ops/editdist.py:265", "win1")}
-    launches["win1"] = launches5["win1"]      # the 5p run's count
+    launches["edgescan_5p"] = launches5["edgescan"]
+    # the window search runs on the control path (the 3p and 5p runs take
+    # the fused edge kernel): the control run's count
+    launches["win1"] = launches_c["win1"]
     kernels = []
     for name, (source, replaces, key) in src.items():
         r = results[key]
@@ -1697,7 +1939,14 @@ def _run(pool, wl, cells, work, dev) -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": None}
-        if name in ("edgescan", "tilescan"):
+        if name in ("edgescan", "edgescan_5p"):
+            entry.update({"device_ms": r["device_ms"],
+                          "burst_ms": r["burst_ms"], "reads": r["reads"],
+                          "ops_per_read": r["ops_per_read"],
+                          "host_us": host_us["edgescan"],
+                          "edge_case_mismatches":
+                              results["edgescan_edge_cases"]["mismatches"]})
+        if name == "tilescan":
             entry["device_ms"] = r["device_ms"]
         if name == "tilescan":
             entry.update({"burst_ms": r["burst_ms"], "words": r["words"],
@@ -1752,7 +2001,7 @@ def _run(pool, wl, cells, work, dev) -> int:
                           "device_ms": r["device_ms"],
                           "burst_ms": r["burst_ms"],
                           "host_us": host_us["win1"],
-                          "launches_v1_control": launches_c["win1"],
+                          "launches_5p": launches5["win1"],
                           "edge_case_mismatches":
                               results["win1_edge_cases"]["mismatches"]})
             for k in ("adc", "tso", "confirm", "b37", "b1"):
@@ -1774,6 +2023,10 @@ def _run(pool, wl, cells, work, dev) -> int:
                       "control_reads_per_s":
                           round(stats_c.total_reads / ctl_s, 1),
                       "control_falsely_assigned_share": false_share,
+                      "edge_3p_device_ms": results["edgescan"]["device_ms"],
+                      "edge_5p_device_ms":
+                          results["edgescan_5p"]["device_ms"],
+                      "edge_5p_ms": results["edgescan_5p"]["ms"],
                       "edge_composed_5p_ms":
                           results["edge_composed_5p"]["ms"],
                       "edge_composed_5p_split_ms":

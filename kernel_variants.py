@@ -5,9 +5,10 @@ nothing imports it.
     python3 kernel_variants.py band     # where the band kernel's time goes
     python3 kernel_variants.py win1     # window search: threads a block
     python3 kernel_variants.py tile     # tile scan: block shape, general path
+    python3 kernel_variants.py edge     # edge scan: parts, lanes, reads a block
     python3 kernel_variants.py host [--root DIR]   # wrappers' host time
 
-band, win1 and tile build a copy of csrc/<kernel>.cu once a variant, the
+band, win1, tile and edge build a copy of csrc/<kernel>.cu once a variant, the
 variant made by exact text replacement (and nvcc -D flags), so an edit of
 the kernel that moves a patched line makes this script fail loudly instead
 of timing something else; all nvcc runs go in parallel. Every variant of
@@ -36,13 +37,25 @@ mc = 11 compiled in. Over chip_smoke.py's tiles of one 32,768-read 3p
 chunk (46,942 tiles) and over its edge tiles (4,096, 11 times over), each
 in three copies that launches rotate through (more than the L2 holds).
 
-host: chip_smoke.py's `wrapper_host_us` (host us of one `myers_win1` and
-one `tile_scan` call) against the `sicelore_tpu_torch` under --root
+edge: edgescan.cu as it is (base), with one thread a read doing both
+sides in turn (lanes1), with 32 reads a block (nr32): these compute the
+kernel's results and are checked first; and with one part compiled out
+each, which compute WRONG results (only their time is read): l2stage
+(every block stages the first block's reads, from the L2: the scan of
+realistic reads without their HBM traffic), noscan (no polyA/T
+scan: every read takes a fixed run), nosearch (no sense adapter search),
+norun (the longest run's counter off: Myers alone in that pass), nobail
+(the bailout's levels off: Myers alone in that pass). Over chip_smoke.py's
+first 3p and 5p chunks (32,768 reads each), in three copies that launches
+rotate through (more than the L2 holds).
+
+host: chip_smoke.py's `wrapper_host_us` (host us of one `myers_win1`, one
+`tile_scan` and one `edge_scan2` call) against the `sicelore_tpu_torch` under --root
 (default: this checkout). To compare two trees on one card, unpack the
 other into a directory that .gitignore lists (`git archive`) and run this
 once with --root there and once without, in one command.
 
-Needs a CUDA GPU (and nvcc for band, win1, tile)."""
+Needs a CUDA GPU (and nvcc for band, win1, tile, edge)."""
 from __future__ import annotations
 
 import argparse
@@ -131,6 +144,42 @@ TILE_VARIANTS = {"base": [], "t16_w2": _tile_shape(16, 64),
                  "t8_w2": _tile_shape(8, 64), "t16_w4": _tile_shape(16, 128),
                  "t64_w8": _tile_shape(64, 256),
                  "general": [(TILE_SPECIAL, "  if (false)")]}
+
+
+EDGE_LANES = "constexpr int LANES = 2;"
+EDGE_NR = "constexpr int NR = 64;"
+EDGE_PATCHES = (
+    ("  const int lim_p = hl - k + 1;          // starts below it lie in the "
+     "read\n",
+     "  const int lim_p = hl - k + 1;          // starts below it lie in the "
+     "read\n#ifdef KNOB_NOSCAN\n  first = 60;\n  last = 80;\n  return;\n"
+     "#endif\n"),
+    ("      walk(wn, tab.pair[0][half], sp);",
+     "#ifndef KNOB_NOSEARCH\n      walk(wn, tab.pair[0][half], sp);\n"
+     "#endif"),
+    ("  __device__ __forceinline__ void run(unsigned eq) {\n",
+     "  __device__ __forceinline__ void run(unsigned eq) {\n"
+     "#ifdef KNOB_NORUN\n    return;\n#endif\n"),
+    ("                                       const EdgeParams& P) {\n"
+     "    constexpr int L",
+     "                                       const EdgeParams& P) {\n"
+     "#ifdef KNOB_NOBAIL\n    return;\n#endif\n    constexpr int L"),
+    ("    const uint4* g = reinterpret_cast<const uint4*>(codes + (size_t)b0 "
+     "* ROWB);",
+     "#ifdef KNOB_L2STAGE\n"
+     "    const uint4* g = reinterpret_cast<const uint4*>(codes);\n#else\n"
+     "    const uint4* g = reinterpret_cast<const uint4*>(codes + (size_t)b0 "
+     "* ROWB);\n#endif"),
+)
+EDGE_VARIANTS = {
+    "base": ([], []),
+    "lanes1": ([(EDGE_LANES, "constexpr int LANES = 1;")], []),
+    "nr32": ([(EDGE_NR, "constexpr int NR = 32;")], []),
+    "l2stage": ([], ["-DKNOB_L2STAGE"]), "noscan": ([], ["-DKNOB_NOSCAN"]),
+    "nosearch": ([], ["-DKNOB_NOSEARCH"]), "norun": ([], ["-DKNOB_NORUN"]),
+    "nobail": ([], ["-DKNOB_NOBAIL"]),
+}
+EDGE_EXACT = ("base", "lanes1", "nr32")
 
 
 def patched(src: str, reps) -> str:
@@ -266,25 +315,81 @@ def run_win1() -> None:
             fns, launch, check, [None])}), flush=True)
 
 
-def chunk_tiles():
-    """chip_smoke.py's tiles of its first 3p chunk (same seeds)."""
+def chunk_reads(chem: str = "3p"):
+    """chip_smoke.py's first 3p or 5p chunk (same seeds)."""
     import numpy as np
 
     import chip_smoke
     from sicelore_tpu_torch.io import fastq
-    from sicelore_tpu_torch.models import readscan
     from sicelore_tpu_torch.ops import _build
     from sicelore_tpu_torch.utils import synth
-    from sicelore_tpu_torch.utils.config import PipelineConfig
     rng = np.random.default_rng(chip_smoke.SEED)
     wl = synth.make_whitelist(rng, chip_smoke.N_WHITELIST)
     cells = [wl[i] for i in sorted(rng.choice(
         chip_smoke.N_WHITELIST, chip_smoke.N_CELLS, replace=False).tolist())]
     path = _build.BUILD_DIR.parent / "kernel_variants" / "reads0.fastq"
-    chip_smoke.make_file((str(path), chip_smoke.SEED + 1, cells, "3p"))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    chip_smoke.make_file((str(path), chip_smoke.SEED + (301 if chem == "5p"
+                                                        else 1), cells, chem))
     chunk = next(fastq.read_fastq(path, chip_smoke.READS_PER_FILE))
     path.unlink()
-    return readscan.build_tiles(chunk.seqs, PipelineConfig())[0]
+    return chunk
+
+
+def chunk_tiles():
+    """chip_smoke.py's tiles of its first 3p chunk (same seeds)."""
+    from sicelore_tpu_torch.models import readscan
+    from sicelore_tpu_torch.utils.config import PipelineConfig
+    return readscan.build_tiles(chunk_reads().seqs, PipelineConfig())[0]
+
+
+def run_edge() -> None:
+    import torch
+
+    import chip_smoke
+    from sicelore_tpu_torch.ops import _build
+    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import edgescan_cuda as ec
+    from sicelore_tpu_torch.utils.config import PipelineConfig
+    fns = build("edgescan", EDGE_VARIANTS, "edgescan_launch", 4, 2,
+                common=EDGE_PATCHES)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = _build.stream_handle(dev)
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    for chem in ("3p", "5p"):
+        chunk = chunk_reads(chem)
+        codes, _, lens, _ = eg.encode_two_half(chunk.seqs, chunk.quals)
+        p = eg.edge_params(PipelineConfig(chemistry=chem))
+        prm = ec.kernel_params(p)
+        B = codes.shape[0]
+        ld = torch.from_numpy(lens).to(dev)
+        copies = [torch.from_numpy(codes).to(dev)]
+        ar = torch.arange(B, device=dev)
+        for _ in range(2):              # one base a read changed
+            c = copies[0].clone()
+            col = torch.randint(0, 2 * eg.E, (B,), device=dev, generator=g)
+            keep = c[ar, col] != 5
+            c[ar[keep], col[keep]] = torch.randint(
+                0, 4, (B,), device=dev, generator=g,
+                dtype=torch.int8)[keep]
+            copies.append(c)
+        ref = eg.edge_scan2_plain(copies[0][:, :eg.E], copies[0][:, eg.E:],
+                                  ld, p)
+        res = torch.empty_like(ref)
+
+        def launch(k, c):
+            _build.check(fns[k](c.data_ptr(), ld.data_ptr(), res.data_ptr(),
+                                prm.ctypes.data, B, prm.size, stream), k)
+
+        def check(k):
+            if k not in EDGE_EXACT:
+                return
+            launch(k, copies[0])
+            if not torch.equal(res, ref):
+                raise SystemExit(f"kernel_variants: edge {k} differs from "
+                                 f"the plain version ({chem})")
+        print(json.dumps({"shape": [chem, B], "ms": in_turns(
+            fns, launch, check, copies)}), flush=True)
 
 
 def run_tile() -> None:
@@ -344,7 +449,7 @@ def run_host(root: Path) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("band", "win1", "tile", "host"))
+    ap.add_argument("what", choices=("band", "win1", "tile", "edge", "host"))
     ap.add_argument("--root", default=str(HERE),
                     help="host: the checkout whose package is timed")
     a = ap.parse_args()
@@ -356,7 +461,8 @@ def main() -> int:
     if a.what == "host":
         run_host(Path(a.root).resolve())
     else:
-        {"band": run_band, "win1": run_win1, "tile": run_tile}[a.what]()
+        {"band": run_band, "win1": run_win1, "tile": run_tile,
+         "edge": run_edge}[a.what]()
     return 0
 
 

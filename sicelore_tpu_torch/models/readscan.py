@@ -495,12 +495,12 @@ def _search_rows(wins_u8: torch.Tensor, peq_bc: torch.Tensor, nvalid: int,
 
 
 def make_pass1_body2(cfg: PipelineConfig):
-    """Pass-1 body: fn(codes_tm, lens) -> int32 [len(P1_ROWS), B]."""
+    """Pass-1 body: fn(codes, lens) -> int32 [len(P1_ROWS), B]."""
     p = eg2.edge_params(cfg)
     sel = [r for _, r in P1_ROWS]
 
-    def fn(codes_tm, lens):
-        return edge_scan2(codes_tm, lens, p)[sel]
+    def fn(codes, lens):
+        return edge_scan2(codes, lens, p)[sel]
 
     return fn
 
@@ -508,13 +508,13 @@ def make_pass1_body2(cfg: PipelineConfig):
 def make_pass1_full_body(cfg: PipelineConfig):
     """Pass-1 FULL body of the cached pipeline: ONE edge scan emits the
     pass-1 rows, everything pass 2 emits from, and the BC search windows
-    (uint8 [bw, B]) the pass-2 sweep reads. fn(codes_tm, lens) -> (rows
+    (uint8 [bw, B]) the pass-2 sweep reads. fn(codes, lens) -> (rows
     int32 [len(P1F_ROWS), B], windows uint8 [bw, B])."""
     p = eg2.edge_params(cfg)
     sel = [r for _, r in P1F_ROWS]
 
-    def fn(codes_tm, lens):
-        meta = edge_scan2(codes_tm, lens, p)
+    def fn(codes, lens):
+        meta = edge_scan2(codes, lens, p)
         return meta[sel], meta[eg2.ROW_BC0:].to(torch.uint8)
 
     return fn
@@ -522,13 +522,13 @@ def make_pass1_full_body(cfg: PipelineConfig):
 
 def make_scan_search2_body(cfg: PipelineConfig, mode: str = "sweep",
                            radius: int = 2, K: int = 64):
-    """Fused edge scan + whitelist search: fn(codes_tm, lens, peq_bc,
+    """Fused edge scan + whitelist search: fn(codes, lens, peq_bc,
     nvalid, qgram_t) -> int32 [len(P2_ROW_NAMES), B]."""
     p = eg2.edge_params(cfg)
     sel = [r for _, r in P2_META_ROWS]
 
-    def fn(codes_tm, lens, peq_bc, nvalid, qgram_t=None):
-        meta = edge_scan2(codes_tm, lens, p)
+    def fn(codes, lens, peq_bc, nvalid, qgram_t=None):
+        meta = edge_scan2(codes, lens, p)
         wins = meta[eg2.ROW_BC0:].to(torch.uint8)
         return torch.cat([meta[sel], _search_rows(
             wins, peq_bc, nvalid, cfg, mode, qgram_t, radius, K)])
@@ -619,16 +619,16 @@ class ReadScanModel:
 
     def _upload(self, seqs: list[bytes], quals: list[bytes]):
         codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
-        codes_tm = torch.from_numpy(codes).to(self.device).t().contiguous()
+        codes = torch.from_numpy(codes).to(self.device)
         lens = torch.from_numpy(true_lens).to(self.device)
-        return codes_tm, lens, qv2, true_lens, qsum
+        return codes, lens, qv2, true_lens, qsum
 
     # -- pass 1 (streaming) ----------------------------------------------
 
     def scan_pass1_async(self, seqs: list[bytes], quals: list[bytes]):
         """Launch the pass-1 scan; force with finish_pass1."""
-        codes_tm, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
-        rows = self._pass1_fn(codes_tm, lens)
+        codes, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
+        rows = self._pass1_fn(codes, lens)
         return _to_host_async(rows), qv2, true_lens, qsum
 
     def finish_pass1(self, handle):
@@ -648,8 +648,8 @@ class ReadScanModel:
     def scan_pass1_full_async(self, seqs: list[bytes], quals: list[bytes]):
         """Launch the pass-1 FULL scan (edge rows + BC windows, see
         make_pass1_full_body); force with finish_pass1_full."""
-        codes_tm, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
-        rows, wins = self._pass1_full_fn(codes_tm, lens)
+        codes, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
+        rows, wins = self._pass1_full_fn(codes, lens)
         return (_to_host_async(rows), _to_host_async(wins), qv2, true_lens,
                 qsum)
 
@@ -719,8 +719,8 @@ class ReadScanModel:
     def scan_search_async(self, seqs: list[bytes], quals: list[bytes]):
         """Launch the fused edge scan + whitelist sweep; force with
         finish_search. Requires prepare_search."""
-        codes_tm, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
-        rows = self._search_fn(codes_tm, lens, self._peq_bc, self._n_valid,
+        codes, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
+        rows = self._search_fn(codes, lens, self._peq_bc, self._n_valid,
                                self._qgram_t)
         return _to_host_async(rows), qv2, true_lens, qsum, seqs, quals
 
@@ -736,9 +736,9 @@ class ReadScanModel:
         idxs = np.nonzero(out["overflow"])[0]
         if len(idxs):
             # the fused rows carry no BC windows: scan those reads again
-            codes_tm, lens, *_ = self._upload([seqs[i] for i in idxs],
+            codes, lens, *_ = self._upload([seqs[i] for i in idxs],
                                               [quals[i] for i in idxs])
-            _, wins = self._pass1_full_fn(codes_tm, lens)
+            _, wins = self._pass1_full_fn(codes, lens)
             self._redo_exact(bc, idxs, wins.t().cpu().numpy())
         return out, bc
 

@@ -5,19 +5,20 @@ Port of `sicelore_tpu/ops/edgescan.py`. Each read is kept as two independent
 halves of E bases: the head (first min(L, E) bases, left-aligned) and the
 tail (last min(L, E) bases, right-aligned, so the read end is always column
 E-1). The port ships the halves as N-safe int8 codes (A,C,G,T,N,PAD =
-0..5), text-major [2E, B] on the device: N and PAD match no pattern base, so
-no read needs a second, exact pass (the TPU path packs 2 bits a base and
-re-runs reads with N through the jnp body).
+0..5), the rows [B, 2E] of `encode_two_half` as they are: N and PAD match no
+pattern base, so no read needs a second, exact pass (the TPU path packs 2
+bits a base and re-runs reads with N through the jnp body).
 
 The body emits [n_rows(cfg), B] int32 rows whose coordinates are HALF-LOCAL
 (tail columns for FWD reads, head columns for REV reads);
 `finalize_meta_np` maps them to true stranded read coordinates on the host.
 The fused CUDA kernel (`ops.edgescan_cuda`) computes the same rows for the
-configs inside its envelope. For the others (5p chemistry first of all)
-`edge_scan2_composed` runs the same body as torch ops with its three adapter
-searches through the window-search kernel, as `make_edge_scan2_jnp` does in
-the JAX package; `edge_scan2_plain` searches through the plain sweep on any
-device and is what both are compared with.
+configs inside its envelope, 3p and 5p chemistry. For the others (an adapter
+window over 128 columns, say) `edge_scan2_composed` runs the same body as
+torch ops with its three adapter searches through the window-search kernel,
+as `make_edge_scan2_jnp` does in the JAX package; `edge_scan2_plain`
+searches through the plain sweep on any device and is what both are
+compared with.
 """
 from __future__ import annotations
 
@@ -141,9 +142,9 @@ def edge_params(cfg: PipelineConfig) -> EdgeParams:
                           len(t.sequence))
     c1 = t.min_tso_consecutive_matches
     c2 = t.min_tso_two_best_consecutive_matches
-    # the kernel's envelope mirrors sicelore_tpu/ops/edgescan_tpu.py::_supported
+    # the kernel's envelope: sicelore_tpu/ops/edgescan_tpu.py::_supported
+    # without its 3p-only rule (both chemistries run _edge_body)
     checks = (
-        (not is5p, "5p chemistry"),
         (2 <= k <= 16 and 1 <= mc <= k, "polyAT length/fraction"),
         (p.window_search_for_polya + k <= E - 8, "polyA window"),
         (1 <= m_ad <= 31 and 1 <= m_adc <= 31 and 1 <= m_tso <= 31,

@@ -9,10 +9,12 @@ loop, which for the unrolled kernels of this package is the inner loop.
 Needs nvcc and cuobjdump (the CUDA toolkit); builds the libraries first if
 they are not built. Prints one JSON line per kernel:
 {"lib", "kernel", "registers", "shared", "stack", "loop_instructions",
-"loop_mix": {opcode: count}}. Divide `loop_instructions` by the columns (or
-cells) the source unrolls into one trip of the loop to get the count a
-column; the opcodes on the integer pipe are everything but LDS/LDG/STS/STG,
-BRA/BAR and SHFL."""
+"loop_mix": {opcode: count}, "instructions", "loops": [[first, length],
+...]}. Divide `loop_instructions` by the columns (or cells) the source
+unrolls into one trip of the loop to get the count a column; the opcodes on
+the integer pipe are everything but LDS/LDG/STS/STG, BRA/BAR and SHFL.
+`instructions` counts the kernel's SASS; `loops` lists every innermost loop
+(index of its first instruction, instructions a trip)."""
 from __future__ import annotations
 
 import argparse
@@ -86,12 +88,15 @@ def hottest_loops(sass: str) -> dict[str, dict]:
             lp != o and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
         best = max(inner, key=lambda lp: lp[1] - lp[0], default=None)
         if best is None:
-            out[name] = {"loop_instructions": 0, "loop_mix": {}}
+            out[name] = {"loop_instructions": 0, "loop_mix": {},
+                         "instructions": len(ins), "loops": []}
             continue
         mix = Counter(op.split(".")[0] for _, op, _ in
                       ins[best[0]:best[1] + 1])
         out[name] = {"loop_instructions": best[1] - best[0] + 1,
-                     "loop_mix": dict(mix.most_common())}
+                     "loop_mix": dict(mix.most_common()),
+                     "instructions": len(ins),
+                     "loops": [[a, b - a + 1] for a, b in sorted(inner)]}
     return out
 
 

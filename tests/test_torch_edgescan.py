@@ -84,8 +84,8 @@ def test_plain_edge_body_matches_jnp(chem):
 
     codes, qv2, true_lens, qsum = eg.encode_two_half(seqs, quals)
     p = eg.edge_params(tcfg)
-    got = edge_scan2(torch.from_numpy(codes).t().contiguous(),
-                     torch.from_numpy(true_lens), p).numpy()
+    got = edge_scan2(torch.from_numpy(codes), torch.from_numpy(true_lens),
+                     p).numpy()
     assert got.dtype == np.int32 and got.shape == ref.shape
     for r in range(ref.shape[0]):
         bad = np.nonzero(ref[r] != got[r])[0]
@@ -111,8 +111,8 @@ def test_plain_body_counts_and_tso_bailout():
     seq = _partial_tso(rng, cfg)
     codes, _, lens, _ = eg.encode_two_half([seq], [b"I" * len(seq)])
     before = eg.edge_scan2_plain.launches
-    meta = edge_scan2(torch.from_numpy(codes).t().contiguous(),
-                      torch.from_numpy(lens), eg.edge_params(cfg)).numpy()
+    meta = edge_scan2(torch.from_numpy(codes), torch.from_numpy(lens),
+                      eg.edge_params(cfg)).numpy()
     assert eg.edge_scan2_plain.launches == before + 1
     assert edge_scan2.launches == 0
     assert meta[eg.ROW_STRANDED, 0] and meta[eg.ROW_IS_FWD, 0]
@@ -180,20 +180,26 @@ def test_patterns_and_used_list_peq_match_jax_model():
 
 
 def test_kernel_envelope_rejects_5p_on_cuda_only():
-    """The fused kernel's envelope leaves 5p out; such a config takes the
-    composed body (adapter searches through myers_win1), which on CPU
-    tensors computes what edge_scan2 computes there."""
+    """The fused kernel's envelope holds both chemistries (the name dates
+    from when it left 5p out). A config outside it (an adapter window of
+    129 columns) takes the composed body (adapter searches through
+    myers_win1), which on CPU tensors computes what edge_scan2 computes
+    there."""
+    for chem in ("3p", "5p"):
+        cfg = TorchConfig()
+        cfg.chemistry = chem
+        assert eg.edge_params(cfg).kernel_unsupported == ""
     cfg = TorchConfig()
-    assert eg.edge_params(cfg).kernel_unsupported == ""
     cfg.chemistry = "5p"
+    cfg.adapter5p.adapter_search_window = 129
     p = eg.edge_params(cfg)
-    assert "5p" in p.kernel_unsupported
+    assert p.kernel_unsupported == "adapter window"
     seqs, quals = _reads(np.random.default_rng(31), "5p", n=40)
     codes, _, lens, _ = eg.encode_two_half(seqs, quals)
-    ct = torch.from_numpy(codes).t().contiguous()
+    ct = torch.from_numpy(codes)
     before = (eg.edge_scan2_composed.launches,
               editdist.myers_win1_plain.launches)
-    got = eg.edge_scan2_composed(ct[:eg.E].t(), ct[eg.E:].t(),
+    got = eg.edge_scan2_composed(ct[:, :eg.E], ct[:, eg.E:],
                                  torch.from_numpy(lens), p)
     assert eg.edge_scan2_composed.launches == before[0] + 1
     assert editdist.myers_win1_plain.launches == before[1] + 3

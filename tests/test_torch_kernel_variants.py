@@ -16,6 +16,8 @@ SETS = {
     "bandalign": (kv.BAND_PATCHES, {k: [] for k in kv.BAND_VARIANTS}),
     "win1": ((), {"rows64": [(kv.WIN1_ROWS, "constexpr int ROWS = 64;")]}),
     "tilescan": ((), kv.TILE_VARIANTS),
+    "edgescan": (kv.EDGE_PATCHES,
+                 {k: reps for k, (reps, _) in kv.EDGE_VARIANTS.items()}),
 }
 
 

@@ -55,16 +55,92 @@ def reads():
     return wl, seqs
 
 
-def test_edge_kernel_matches_plain(dev, reads):
-    _, seqs = reads
-    codes, _, lens, _ = eg.encode_two_half(seqs, [b"I" * len(s) for s in seqs])
-    ct = torch.from_numpy(codes).to(dev).t().contiguous()
-    ld = torch.from_numpy(lens).to(dev)
-    p = eg.edge_params(PipelineConfig())
+def _rows(seqs, dev):
+    codes, _, lens, _ = eg.encode_two_half(seqs, [b"I" * len(x) for x in seqs])
+    return (torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev),
+            codes, lens)
+
+
+def _params(chem, **kw):
+    cfg = PipelineConfig()
+    cfg.chemistry = chem
+    for key, val in kw.items():
+        obj, name = key.split("__")
+        setattr(getattr(cfg, obj), name, val)
+    return eg.edge_params(cfg)
+
+
+@pytest.mark.parametrize("chem", ["3p", "5p"])
+def test_edge_kernel_matches_plain(dev, reads, chem):
+    """csrc/edgescan.cu on encode_two_half's rows [B, 2E] against
+    edge_scan2_plain, both chemistries."""
+    seqs = reads[1] if chem == "3p" else _reads_5p()
+    ct, ld, _, _ = _rows(seqs, dev)
+    p = _params(chem)
+    before = edge_scan2.launches
     k = edge_scan2(ct, ld, p)
-    pl = eg.edge_scan2_plain(ct[:eg.E].t(), ct[eg.E:].t(), ld, p)
+    pl = eg.edge_scan2_plain(ct[:, :eg.E], ct[:, eg.E:], ld, p)
+    torch.cuda.synchronize()
+    assert edge_scan2.launches == before + 1
+    assert torch.equal(k, pl) and int(pl[eg.ROW_STRANDED].sum()) > 200
+
+
+@pytest.mark.parametrize("B", [1, 37, 129, None])
+@pytest.mark.parametrize("chem", ["3p", "5p"])
+def test_edge_kernel_edge_set_matches_plain(dev, chem, B):
+    """chip_smoke.py's edge set (reads of length 0, under k, E, 2E and over
+    2E, all-N reads, runs at win_p and at word borders, adapter windows off
+    both read ends) in launches of 1, 37, 129 reads and all of them."""
+    seqs, _ = chip_smoke.edge_set_reads(np.random.default_rng(3), chem)
+    seqs = seqs[:B] if B else seqs
+    ct, ld, codes, lens = _rows(seqs, dev)
+    p = _params(chem)
+    k = edge_scan2(ct, ld, p)
+    torch.cuda.synchronize()
+    pl = eg.edge_scan2_plain(torch.from_numpy(codes[:, :eg.E]),
+                             torch.from_numpy(codes[:, eg.E:]),
+                             torch.from_numpy(lens), p)
+    assert torch.equal(k.cpu(), pl)
+
+
+@pytest.mark.parametrize("chem,kw", [
+    ("3p", {"polyat__polyat_length": 9,
+            "polyat__fraction_at_in_polyat": 0.7}),
+    ("5p", {"polyat__polyat_length": 16,
+            "polyat__fraction_at_in_polyat": 0.5,
+            "polyat__window_search_for_polya": 200}),
+    ("5p", {"tso5p__min_tso_consecutive_matches": 5,
+            "tso5p__min_tso_two_best_consecutive_matches": 7}),
+    ("3p", {"tso3p__min_tso_consecutive_matches": 16,
+            "tso3p__min_tso_two_best_consecutive_matches": 20})])
+def test_edge_kernel_general_path_matches_plain(dev, chem, kw):
+    """Configs off the compiled default (k, mc, c1, c2 read at run time)."""
+    seqs, _ = chip_smoke.edge_set_reads(np.random.default_rng(5), chem)
+    ct, ld, _, _ = _rows(seqs, dev)
+    p = _params(chem, **kw)
+    assert p.kernel_unsupported == ""
+    k = edge_scan2(ct, ld, p)
+    pl = eg.edge_scan2_plain(ct[:, :eg.E], ct[:, eg.E:], ld, p)
     torch.cuda.synchronize()
     assert torch.equal(k, pl)
+
+
+def test_edge_kernel_rejects_other_inputs(dev):
+    """Rows that are not contiguous, not 16-byte aligned or not int8
+    raise; nothing falls back to the plain body."""
+    p = _params("3p")
+    buf = torch.full((4 * 2 * eg.E + 64,), dna.PAD, dtype=torch.int8,
+                     device=dev)
+    ld = torch.full((4,), 100, dtype=torch.int32, device=dev)
+    off = (-buf.data_ptr()) % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        edge_scan2(buf[off + 8:off + 8 + 4 * 2 * eg.E].view(4, -1), ld, p)
+    wide = buf[:4 * (2 * eg.E + 16)].view(4, -1)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_scan2(wide[:, :2 * eg.E], ld, p)
+    with pytest.raises(ValueError, match="contiguous int8"):
+        edge_scan2(torch.zeros((4, 2 * eg.E), dtype=torch.int32,
+                               device=dev), ld, p)
 
 
 def _reads_5p(n=300):
@@ -87,20 +163,18 @@ def _reads_5p(n=300):
 
 
 def test_edge_kernel_refuses_5p(dev):
-    """The fused kernel does not take 5p: edge_scan2 runs the composed body
-    on the card (three window searches through the kernel) and its rows
-    equal edge_scan2_plain's on CPU tensors."""
-    cfg = PipelineConfig()
-    cfg.chemistry = "5p"
-    p = eg.edge_params(cfg)
-    assert "5p" in p.kernel_unsupported
+    """A config outside the fused kernel's envelope (an adapter window of
+    129 columns; the name dates from when 5p was outside): edge_scan2 runs
+    the composed body on the card (three window searches through the
+    kernel) and its rows equal edge_scan2_plain's on CPU tensors."""
+    p = _params("5p", adapter5p__adapter_search_window=129)
+    assert p.kernel_unsupported == "adapter window"
     seqs = _reads_5p()
-    codes, _, lens, _ = eg.encode_two_half(seqs, [b"I" * len(s) for s in seqs])
-    ct = torch.from_numpy(codes).to(dev).t().contiguous()
+    ct, ld, codes, lens = _rows(seqs, dev)
     before = (edge_scan2.launches, eg.edge_scan2_composed.launches,
               editdist.myers_win1.launches,
               editdist.myers_win1_plain.launches)
-    k = edge_scan2(ct, torch.from_numpy(lens).to(dev), p)
+    k = edge_scan2(ct, ld, p)
     torch.cuda.synchronize()
     assert (edge_scan2.launches, eg.edge_scan2_composed.launches,
             editdist.myers_win1.launches,
@@ -111,6 +185,19 @@ def test_edge_kernel_refuses_5p(dev):
                              torch.from_numpy(lens), p)
     assert torch.equal(k.cpu(), pl)
     assert int(pl[eg.ROW_STRANDED].sum()) > 200
+
+
+def test_edge_5p_launches_the_fused_kernel_only(dev):
+    """5p reads take the fused kernel once a call: no window search, no
+    composed body, no plain body."""
+    ct, ld, _, _ = _rows(_reads_5p(), dev)
+    counters = (edge_scan2, eg.edge_scan2_composed, eg.edge_scan2_plain,
+                editdist.myers_win1, editdist.myers_win1_plain)
+    before = [c.launches for c in counters]
+    edge_scan2(ct, ld, _params("5p"))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [1, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("B,W,m", [(1, 110, 22), (37, 110, 22), (300, 1, 5),
