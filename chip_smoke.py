@@ -26,7 +26,8 @@ Phases (one JSON line each, with its seconds):
             sites at own_lo, own_hi - 1 and tlen - k, confirm windows off
             both tile ends, an all-PAD tile) in launches of 129 and 1
             tiles. `wrapper_host_us`: the host time of one `myers_win1`,
-            one `tile_scan` and one `edge_scan2` call. The sweep runs with and without the
+            one `tile_scan` and one 3p and one 5p `edge_scan2` call. The
+            sweep runs with and without the
             end position (the main path asks for none), also over 4,096
             reads (a small launch must keep the card full), on small cases
             that its barcode slices could get wrong (SWEEP_EDGE_CASES) and
@@ -176,6 +177,7 @@ No PyTorch call computes any of the five functions: `library_ms` is null.
 """
 from __future__ import annotations
 
+import functools
 import json
 import multiprocessing as mp
 import shutil
@@ -533,13 +535,11 @@ def edge_scan_work(codes, lens, p) -> dict:
             "tso_columns": int(n_tso.sum())}
 
 
-def wrapper_host_us(dev, calls: int = HOST_CALLS) -> dict:
-    """Host microseconds of one wrapper call: `calls` calls back to back on
-    the host clock, no sync between them (the launches queue up), one
-    window of 90 columns for `myers_win1`, one tile for `tile_scan`, one
-    read for `edge_scan2`; the least of three rounds. What the wrapper's
-    Python, its checks, the allocation of its output and the launch cost
-    the caller."""
+def host_calls(dev) -> dict:
+    """One call of each timed wrapper on a minimal input: one window of 90
+    columns for `myers_win1`, one tile for `tile_scan`, one read for
+    `edge_scan2` with the 3p and with the 5p parameters. Each is a
+    functools.partial of the wrapper."""
     import numpy as np
     import torch
 
@@ -552,30 +552,38 @@ def wrapper_host_us(dev, calls: int = HOST_CALLS) -> dict:
     peq = editdist.build_peq(np.arange(16, dtype=np.int8)[None, :] % 4)
     w = torch.zeros((1, 90), dtype=torch.int8, device=dev)
     rows = torch.from_numpy(tile_edge_rows(2)[1:]).to(dev)
-    tp = ts.tile_params(PipelineConfig())
     read = torch.full((1, 2 * eg.E), dna.PAD, dtype=torch.int8, device=dev)
     rlen = torch.zeros(1, dtype=torch.int32, device=dev)
-    ep = eg.edge_params(PipelineConfig())
-    try:
-        edge_scan2(read, rlen, ep)
-    except ValueError:      # a tree whose edge scan takes [2E, B]
-        read = read.t().contiguous()
-    out = {}
-    for name, fn in (("win1", lambda: editdist.myers_win1(w, peq, 16)),
-                     ("tilescan", lambda: ts.tile_scan(rows, tp)),
-                     ("edgescan", lambda: edge_scan2(read, rlen, ep))):
-        best = None
-        for _ in range(3):
+    return {"win1": functools.partial(editdist.myers_win1, w, peq, 16),
+            "tilescan": functools.partial(
+                ts.tile_scan, rows, ts.tile_params(PipelineConfig())),
+            **{key: functools.partial(edge_scan2, read, rlen, eg.edge_params(
+                PipelineConfig(chemistry=chem)))
+               for key, chem in (("edgescan", "3p"), ("edgescan_5p", "5p"))}}
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds of one call of fn: `calls` calls back to back on
+    the host clock, no sync between them (the launches queue up); the
+    least of three rounds. What the wrapper's Python, its checks, the
+    allocation of its output and the launch cost the caller."""
+    import torch
+    best = None
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
             fn()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            us = (time.perf_counter() - t) / calls * 1e6
-            torch.cuda.synchronize()
-            best = us if best is None else min(best, us)
-        out[name] = best
-    return out
+        us = (time.perf_counter() - t) / calls * 1e6
+        torch.cuda.synchronize()
+        best = us if best is None else min(best, us)
+    return best
+
+
+def wrapper_host_us(dev) -> dict:
+    """host_us of each of host_calls(dev)."""
+    return {name: host_us(fn) for name, fn in host_calls(dev).items()}
 
 
 def nbytes(*tensors) -> int:
@@ -1332,8 +1340,11 @@ def _run(pool, wl, cells, work, dev) -> int:
                                       torch.from_numpy(c_np[:n, eg.E:]),
                                       torch.from_numpy(l_np[:n]), pe)
             edge_set[f"{chem}_b{n}"] = int((got.cpu() != ref).sum())
-    results["edgescan_edge_cases"] = {"mismatches": sum(edge_set.values()),
-                                      "cases": edge_set}
+    results["edgescan_edge_cases"] = {
+        "mismatches": sum(edge_set.values()),
+        **{chem: sum(v for k, v in edge_set.items() if k.startswith(chem))
+           for chem in ("3p", "5p")},
+        "cases": edge_set}
     meta = edge_scan2(codes, lens_d, ep)
     wins = meta[eg.ROW_BC0:].to(torch.uint8).contiguous()
 
@@ -1943,9 +1954,10 @@ def _run(pool, wl, cells, work, dev) -> int:
             entry.update({"device_ms": r["device_ms"],
                           "burst_ms": r["burst_ms"], "reads": r["reads"],
                           "ops_per_read": r["ops_per_read"],
-                          "host_us": host_us["edgescan"],
+                          "host_us": host_us[name],
                           "edge_case_mismatches":
-                              results["edgescan_edge_cases"]["mismatches"]})
+                              results["edgescan_edge_cases"][
+                                  "5p" if name == "edgescan_5p" else "3p"]})
         if name == "tilescan":
             entry["device_ms"] = r["device_ms"]
         if name == "tilescan":

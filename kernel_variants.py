@@ -5,7 +5,7 @@ nothing imports it.
     python3 kernel_variants.py band     # where the band kernel's time goes
     python3 kernel_variants.py win1     # window search: threads a block
     python3 kernel_variants.py tile     # tile scan: block shape, general path
-    python3 kernel_variants.py edge     # edge scan: parts, lanes, reads a block
+    python3 kernel_variants.py edge     # edge scan: parts, general path, reads a block
     python3 kernel_variants.py host [--root DIR]   # wrappers' host time
 
 band, win1, tile and edge build a copy of csrc/<kernel>.cu once a variant, the
@@ -37,9 +37,10 @@ mc = 11 compiled in. Over chip_smoke.py's tiles of one 32,768-read 3p
 chunk (46,942 tiles) and over its edge tiles (4,096, 11 times over), each
 in three copies that launches rotate through (more than the L2 holds).
 
-edge: edgescan.cu as it is (base), with one thread a read doing both
-sides in turn (lanes1), with 32 reads a block (nr32): these compute the
-kernel's results and are checked first; and with one part compiled out
+edge: edgescan.cu as it is (base), through its general path (`general`:
+k, mc, c1 and c2 read at run time in place of the default k = 15, mc = 12,
+c1 = 8, c2 = 12 compiled in), with 32 reads a block (nr32): these compute
+the kernel's results and are checked first; and with one part compiled out
 each, which compute WRONG results (only their time is read): l2stage
 (every block stages the first block's reads, from the L2: the scan of
 realistic reads without their HBM traffic), noscan (no polyA/T
@@ -49,9 +50,10 @@ norun (the longest run's counter off: Myers alone in that pass), nobail
 first 3p and 5p chunks (32,768 reads each), in three copies that launches
 rotate through (more than the L2 holds).
 
-host: chip_smoke.py's `wrapper_host_us` (host us of one `myers_win1`, one
-`tile_scan` and one `edge_scan2` call) against the `sicelore_tpu_torch` under --root
-(default: this checkout). To compare two trees on one card, unpack the
+host: chip_smoke.py's `host_us` of each of its `host_calls` (one
+`myers_win1`, one `tile_scan`, one 3p and one 5p `edge_scan2` call) against
+the `sicelore_tpu_torch` under --root (default: this checkout; a tree whose
+edge scan takes text-major [2E, B] codes gets its read transposed). To compare two trees on one card, unpack the
 other into a directory that .gitignore lists (`git archive`) and run this
 once with --root there and once without, in one command.
 
@@ -60,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -146,8 +149,8 @@ TILE_VARIANTS = {"base": [], "t16_w2": _tile_shape(16, 64),
                  "general": [(TILE_SPECIAL, "  if (false)")]}
 
 
-EDGE_LANES = "constexpr int LANES = 2;"
 EDGE_NR = "constexpr int NR = 64;"
+EDGE_SPECIAL = "  if (P.k == 15 && P.mc == 12 && P.c1 == 8 && P.c2 == 12)"
 EDGE_PATCHES = (
     ("  const int lim_p = hl - k + 1;          // starts below it lie in the "
      "read\n",
@@ -173,13 +176,13 @@ EDGE_PATCHES = (
 )
 EDGE_VARIANTS = {
     "base": ([], []),
-    "lanes1": ([(EDGE_LANES, "constexpr int LANES = 1;")], []),
+    "general": ([(EDGE_SPECIAL, "  if (false)")], []),
     "nr32": ([(EDGE_NR, "constexpr int NR = 32;")], []),
     "l2stage": ([], ["-DKNOB_L2STAGE"]), "noscan": ([], ["-DKNOB_NOSCAN"]),
     "nosearch": ([], ["-DKNOB_NOSEARCH"]), "norun": ([], ["-DKNOB_NORUN"]),
     "nobail": ([], ["-DKNOB_NOBAIL"]),
 }
-EDGE_EXACT = ("base", "lanes1", "nr32")
+EDGE_EXACT = ("base", "general", "nr32")
 
 
 def patched(src: str, reps) -> str:
@@ -443,8 +446,16 @@ def run_host(root: Path) -> None:
         raise SystemExit(f"kernel_variants: imported "
                          f"{sicelore_tpu_torch.__file__}, not the package "
                          f"under {root}")
-    print(json.dumps({"root": str(root), "host_us": chip_smoke.wrapper_host_us(
-        torch.device("cuda"))}), flush=True)
+    calls = chip_smoke.host_calls(torch.device("cuda"))
+    try:
+        calls["edgescan"]()
+    except ValueError:      # a tree whose edge scan takes text-major [2E, B]
+        for key in ("edgescan", "edgescan_5p"):
+            f = calls[key]
+            calls[key] = functools.partial(f.func, f.args[0].t().contiguous(),
+                                           *f.args[1:])
+    print(json.dumps({"root": str(root), "host_us": {
+        k: chip_smoke.host_us(fn) for k, fn in calls.items()}}), flush=True)
 
 
 def main() -> int:

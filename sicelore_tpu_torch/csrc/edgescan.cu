@@ -69,8 +69,7 @@ constexpr int E = 304;                  // ops/edgescan.py E
 constexpr int ROWB = 2 * E;             // 608 bytes a read row
 constexpr int RS = ROWB + 16;           // staged row stride (624 = 39 x 16)
 constexpr int NR = 64;                  // reads a block
-constexpr int LANES = 2;                // threads a read (one a side)
-constexpr int THREADS = NR * LANES;
+constexpr int THREADS = 2 * NR;         // two threads a read (one a side)
 constexpr int NV = (NR * ROWB / 16 + THREADS - 1) / THREADS;
 constexpr int NW = (E + 31) / 32;       // 32-column words a half
 constexpr int BIG = 1000000000;
@@ -518,10 +517,8 @@ edge_scan_kernel(const int8_t* __restrict__ codes,
 
   const int awin = P.awin;
   // side 0: REV (polyT in the head), side 1: FWD (polyA in the tail)
-  for (int s = LANES == 2 ? tid / NR : 0; s < (LANES == 2 ? tid / NR + 1 : 2);
-       ++s) {
-    const int r = LANES == 2 ? tid % NR : tid;
-    if (r >= nr) break;
+  const int s = tid / NR, r = tid % NR;
+  if (r < nr) {
     const uint8_t* row = sm + r * RS;
     const int hl = min(lens[b0 + r], E);
     int first, last;
@@ -551,10 +548,7 @@ edge_scan_kernel(const int8_t* __restrict__ codes,
   }
   __syncthreads();
 
-  for (int s = LANES == 2 ? tid / NR : 0; s < (LANES == 2 ? tid / NR + 1 : 2);
-       ++s) {
-    const int r = LANES == 2 ? tid % NR : tid;
-    if (r >= nr) break;
+  if (r < nr) {
     const int b = b0 + r;
     const uint8_t* row = sm + r * RS;
     const int hl = min(lens[b], E);

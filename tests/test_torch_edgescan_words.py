@@ -28,8 +28,8 @@ M32 = 0xFFFFFFFF
 E = eg.E
 ROWB = 2 * E
 RS = ROWB + 16                       # csrc/edgescan.cu RS
-NR, LANES = 64, 2                    # reads a block, threads a read
-THREADS = NR * LANES
+NR = 64                              # reads a block
+THREADS = 2 * NR                     # two threads a read
 NV = -(-NR * ROWB // 16 // THREADS)
 NW = (E + 31) // 32
 BIG = 10**9
