@@ -34,7 +34,12 @@ Phases (one JSON line each, with its seconds):
             its merge kernel alone against `merge_sweep_partials_plain`;
             the band aligner also on pair sets with infeasible, band-edge
             and empty pairs and a center of length 0 (BAND_EDGE_SHAPES),
-            with both forms of its prefix maximum. Tolerance: exact
+            with both forms of its prefix maximum, and at the aligner's gap
+            buckets (GAP_SHAPES: Lc 64, 128 and 256 at W 32, pairs as
+            `GapBatcher` builds them, each its own molecule, with
+            infeasible and empty ones). `myers_global_pairwise` (a torch
+            body, no kernel) is timed at a large UMI group, 256 UMIs of 12
+            nt and 32 of 16 nt, and held to its CPU run. Tolerance: exact
             (integer outputs; mismatches must be 0). Median ms of each over
             >= 5 timed calls (CUDA events), each call on freshly mutated
             content; `device_ms` is the device time of a call's launches
@@ -90,6 +95,24 @@ Phases (one JSON line each, with its seconds):
             each stage) gives the split of the phase's time.
   consensus_parity  the same consensus on a 2,048-molecule subset on `cuda`
             and on `cpu`: output fastq and stats byte-identical.
+  steps_1_to_4b  Steps 1 -> 2 -> 3 -> 4b chained on `cuda` (chain_steps):
+            scanfastq -> align (the spliced aligner; its gap extension
+            runs the band kernel) -> assignumis with the refFlat (UMI
+            distances of groups of 48 unique UMIs or more on the card) ->
+            tagbamwithread -> computeconsensus, over a synthetic genome (two
+            4 Mb contigs, 1,000 genes of one or two exons) and 8,192 3p
+            reads of 16 cells: 64 (cell, gene) groups of 64-80 molecules,
+            the rest of 1-8 molecules at 1-4 reads (chain_genome,
+            chain_reads). Launch counts are zeroed before each step and read
+            after it: the aligner and computeconsensus must launch the band
+            kernel, assignumis `myers_global_pairwise` on the card, no plain
+            body may run. Reads/s of align, records/s of assignumis, a
+            split of both (timers around the methods, a device sync around
+            the device parts), which native host codecs the aligner took,
+            and the shares of primary records inside their true gene and
+            carrying it as GE (CHAIN_MIN_SHARE). Then the whole chain on a
+            subset of about 1,024 reads on `cuda` and on `cpu`: every file
+            byte-identical.
 
 `python3 chip_smoke.py --kernels-only` stops after the `kernels` phase (for
 iterating on a kernel; it prints no ok line).
@@ -172,7 +195,8 @@ Operation counts, from the kernels' own arithmetic:
     compare and select 3, diagonal add 1, vertical add and max 2, gap
     closure (a prefix maximum) 2, clamp 1, the two move tests 4. Lane
     bookkeeping, shuffles and the traceback (1/W of the cells) are not
-    counted; clen is this run's, not Lc.
+    counted; clen is this run's, not Lc (at the gap shapes, each pair's
+    own ref segment).
 No PyTorch call computes any of the five functions: `library_ms` is null.
 """
 from __future__ import annotations
@@ -211,6 +235,22 @@ CONTROL_MAX_ED = 1
 PREFILTER_RADIUS = 2
 N_MOLECULES = 32_768
 N_CONS_PARITY = 2_048
+# Lc, pairs (W 32): the mean pairs a call of the aligner's buckets in the
+# chained phase's align step (2,048 reads a call)
+GAP_SHAPES = ((64, 25_823), (128, 2_283), (256, 19))
+UMI_GROUP = ((12, 256), (16, 32))   # pattern length, UMIs of that length
+CHAIN_CONTIGS = 2
+CHAIN_CONTIG_LEN = 4_000_000
+CHAIN_GENES = 1_000
+CHAIN_READS = 8_192         # halved from 16,384: the phase took 107 s
+CHAIN_CELLS = 16
+CHAIN_WHITELIST = 1_024
+CHAIN_BIG_GROUPS = 64
+CHAIN_BIG_MOLECULES = (64, 80)
+CHAIN_PARITY = 1_024
+# the shares of primary records inside their true gene, and carrying it as
+# GE: both were 1.0 on the CPU at the parity size (1,022 of 1,022)
+CHAIN_MIN_SHARE = 0.97
 HBM_BYTES_PER_S = 3.35e12
 # int32 lanes a clock: an SM's four schedulers dispatch one warp instruction
 # (32 lanes) a clock each, and integer work runs on two pipes side by side
@@ -953,7 +993,8 @@ def read_fastq_records(path):
 
 def timed_fn(secs, owner, attr, key, sync=False):
     """Replace owner.attr by a wrapper that adds its seconds to secs[key]
-    (after a device sync when `sync`); returns the undo function."""
+    (key() when key is callable; after a device sync when `sync`); returns
+    the undo function."""
     import torch
     fn = getattr(owner, attr)
 
@@ -964,7 +1005,8 @@ def timed_fn(secs, owner, attr, key, sync=False):
         out = fn(*a, **kw)
         if sync:
             torch.cuda.synchronize()
-        secs[key] = secs.get(key, 0.0) + time.perf_counter() - t
+        k = key() if callable(key) else key
+        secs[k] = secs.get(k, 0.0) + time.perf_counter() - t
         return out
     wrapper.launches = getattr(fn, "launches", 0)
     setattr(owner, attr, wrapper)
@@ -1180,6 +1222,253 @@ def bc_truth(passed_dir, cells):
                     n_tot += 1
                     n_ok += info.bc == cells[int(o.split("c")[1])]
     return n_ok, n_tot
+
+
+def chain_genome(rng, n_contigs, contig_len, n_genes, exon_len=(250, 700)):
+    """A synthetic genome and its genes: contigs of random bases; genes of
+    one exon (twice exon_len: 500-1,400 nt) or two (exon_len each around a
+    300-2,000 nt intron with GT..AG at its ends, CT..AC on the minus
+    strand), one a slot of contig_len * n_contigs / n_genes bases. Returns
+    (contigs
+    {name: bytes}, genes [(name, chrom, strand, [(start, end), ...])],
+    0-based half-open exons)."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    per = n_genes // n_contigs
+    slot = contig_len // per
+    contigs, genes = {}, []
+    for c in range(n_contigs):
+        chrom = f"chr{c + 1}"
+        seq = bytearray(acgt[rng.integers(0, 4, contig_len)].tobytes())
+        for k in range(per):
+            strand = "+" if rng.random() < 0.5 else "-"
+            lo, hi = exon_len
+            if rng.random() < 0.5:
+                lens = [int(rng.integers(2 * lo, 2 * hi))]
+                intron = 0
+            else:
+                lens = [int(rng.integers(lo, hi)), int(rng.integers(lo, hi))]
+                intron = int(rng.integers(300, 2000))
+            span = sum(lens) + intron
+            s = k * slot + int(rng.integers(100, slot - span - 100))
+            exons = [(s, s + lens[0])]
+            if intron:
+                i0, i1 = s + lens[0], s + lens[0] + intron
+                exons.append((i1, i1 + lens[1]))
+                don, acc = (b"GT", b"AG") if strand == "+" else (b"CT", b"AC")
+                seq[i0:i0 + 2], seq[i1 - 2:i1] = don, acc
+            genes.append((f"G{len(genes)}", chrom, strand, exons))
+        contigs[chrom] = bytes(seq)
+    return contigs, genes
+
+
+def write_chain_refs(contigs, genes, fasta, refflat):
+    """The genome as fasta (80 columns) and its genes as a refFlat."""
+    with open(fasta, "w") as fh:
+        for name, seq in contigs.items():
+            fh.write(f">{name}\n")
+            for i in range(0, len(seq), 80):
+                fh.write(seq[i:i + 80].decode() + "\n")
+    with open(refflat, "w") as fh:
+        for name, chrom, strand, exons in genes:
+            s, e = exons[0][0], exons[-1][1]
+            fh.write(f"{name}\tT{name}\t{chrom}\t{strand}\t{s}\t{e}\t{s}\t"
+                     f"{e}\t{len(exons)}\t"
+                     + "".join(f"{a}," for a, _ in exons) + "\t"
+                     + "".join(f"{b}," for _, b in exons) + "\n")
+
+
+def chain_reads(rng, contigs, genes, cells, n_reads, n_big, big_mols=(64, 160),
+                big_depth=(1, 2), error_rate=0.04):
+    """3p reads of molecules of (cell, gene) groups, each built as a read of
+    tests/test_align.py's full-pipeline test: TSO + the transcript (sense)
+    + 20 A + UMI + cell barcode + adapter (reverse complements), noise at
+    error_rate, a third of the reads reversed. Groups 0..n_big-1 hold
+    big_mols molecules of big_depth reads (distinct (cell, gene) pairs);
+    every other group 1-8 molecules of 1-4 reads, until n_reads reads.
+    Names carry the truth: r<i>g<gene>c<cell>u<group>. Returns (reads
+    [(name, seq, qual, group)] shuffled, group -> gene index)."""
+    import numpy as np
+
+    from sicelore_tpu_torch.utils import dna, synth
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    tx = []
+    for name, chrom, strand, exons in genes:
+        t = b"".join(contigs[chrom][a:b] for a, b in exons)
+        tx.append(t if strand == "+" else dna.revcomp_bytes(t))
+    reads, group_gene, used = [], [], set()
+    n_cells, n_genes = len(cells), len(genes)
+    while len(reads) < n_reads:
+        g = len(group_gene)
+        while True:
+            ci, gi = int(rng.integers(0, n_cells)), int(rng.integers(0,
+                                                                  n_genes))
+            if (ci, gi) not in used:
+                break
+        used.add((ci, gi))
+        group_gene.append(gi)
+        big = g < n_big
+        n_mol = int(rng.integers(*big_mols, endpoint=True)) if big \
+            else int(rng.integers(1, 9))
+        tail = (b"A" * 20)
+        bc_rc = dna.revcomp_bytes(cells[ci].encode())
+        ad_rc = dna.revcomp_bytes(synth.ADAPTER.encode())
+        for _ in range(n_mol):
+            umi = acgt[rng.integers(0, 4, 12)].tobytes()
+            stranded = (synth.TSO.encode() + tx[gi] + tail
+                        + dna.revcomp_bytes(umi) + bc_rc + ad_rc)
+            depth = int(rng.integers(*big_depth, endpoint=True)) if big \
+                else int(rng.integers(1, 5))
+            for _ in range(depth):
+                if len(reads) == n_reads:
+                    break
+                seq = synth.mutate_np(rng, stranded, error_rate)
+                if len(reads) % 3 == 0:
+                    seq = dna.revcomp_bytes(seq)
+                qual = (rng.integers(15, 41, len(seq)) + 33).astype(
+                    np.uint8).tobytes()
+                reads.append((f"r{len(reads)}g{gi}c{ci}u{g}".encode(), seq,
+                              qual, g))
+    order = rng.permutation(len(reads))
+    return [reads[i] for i in order], group_gene
+
+
+def write_reads(path, reads):
+    with open(path, "wb") as fh:
+        for name, seq, qual, _ in reads:
+            fh.write(b"@%s\n%s\n+\n%s\n" % (name, seq, qual))
+
+
+def chain_truth(aligned_bam, tagged_bam, genes):
+    """Against the generator's truth (the gene in each read's name): of the
+    primary records, how many map inside their true gene's span on its
+    contig, and how many carry their true gene as GE after assignumis.
+    Returns (reads in, primary records, mapped to the true gene, GE tags
+    equal to the true gene)."""
+    from sicelore_tpu_torch.io.bam import BamReader
+    from sicelore_tpu_torch.pipeline import readname
+
+    def true_gene(qname):
+        info = readname.parse_name(qname)
+        o = info.orig_name if info is not None else qname
+        return int(o.split("g")[1].split("c")[0])
+
+    n_prim = n_map = 0
+    with BamReader(aligned_bam) as rd:
+        names = [n for n, _ in rd.header.refs]
+        for r in rd:
+            if r.flag & 0x904:
+                continue
+            n_prim += 1
+            _, chrom, _, exons = genes[true_gene(r.qname)]
+            n_map += (names[r.ref_id] == chrom and r.pos < exons[-1][1]
+                      and r.reference_end() > exons[0][0])
+    n_ge = 0
+    with BamReader(tagged_bam) as rd:
+        for r in rd:
+            if not r.flag & 0x904:
+                n_ge += r.get_tag("GE") == genes[true_gene(r.qname)][0]
+    return n_prim, n_map, n_ge
+
+
+def path_counters():
+    """{name: function} of every launch counter: the five kernel wrappers,
+    the composed edge body, myers_global_pairwise, and the plain bodies
+    (keys starting "plain_")."""
+    from sicelore_tpu_torch.ops import bcsearch, editdist, poa_cuda
+    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import tilescan_cuda as ts
+    from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
+    return {"edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
+            "tilescan": ts.tile_scan, "win1": editdist.myers_win1,
+            "bandalign": poa_cuda.band_align,
+            "edge_composed": eg.edge_scan2_composed,
+            "myers_global_pairwise": editdist.myers_global_pairwise,
+            "plain_edgescan": eg.edge_scan2_plain,
+            "plain_bcsweep": bcsearch.bc_sweep_plain,
+            "plain_tilescan": ts.tile_scan_plain,
+            "plain_win1": editdist.myers_win1_plain,
+            "plain_bandalign": poa_cuda.band_align_plain,
+            "plain_consensus_votes": poa_cuda.consensus_votes_plain}
+
+
+def chain_steps(device, fastq_dir, ref, refflat, wl, out, on_step=None):
+    """Steps 1 -> 2 -> 3 -> 4b of the port on `device`, each through its
+    library entry point: scanfastq, align, assignumis (with the refFlat),
+    tagbamwithread (the cDNA source of computeconsensus), computeconsensus.
+    Every launch count is zeroed just before a step and read just after;
+    on_step(name) is called before each step. Returns ({step: {"s",
+    "launches", "result"}}, {relative path: bytes} of every output file
+    but the HTML scan report)."""
+    from sicelore_tpu_torch.align import NativeAligner
+    from sicelore_tpu_torch.pipeline import programs
+    from sicelore_tpu_torch.pipeline.assignumis import AssignUmisPipeline
+    from sicelore_tpu_torch.pipeline.consensus import compute_consensus
+    from sicelore_tpu_torch.pipeline.scanfastq import ScanFastqPipeline
+    from sicelore_tpu_torch.utils.config import PipelineConfig
+    passed, aligned = out / "scan" / "passed", out / "aligned.bam"
+    umi, umi_us = out / "umi.bam", out / "umi_us.bam"
+    todo = (
+        ("scanfastq", lambda: ScanFastqPipeline(
+            PipelineConfig(), whitelist=wl, chunk_size=8_192,
+            device=device).run([fastq_dir], out / "scan").to_json()),
+        ("align", lambda: NativeAligner(ref, device=device)
+         .align_fastq_to_bam(passed, aligned)),
+        ("assignumis", lambda: AssignUmisPipeline(
+            refflat=refflat, device=device).run(
+            aligned, umi, genecounts_tsv=out / "umi.genecounts.tsv",
+            umidepths_tsv=out / "umi.UMIdepths.tsv",
+            log_json=out / "umi.bam.log").to_json()),
+        ("tagbamwithread", lambda: programs.tag_bam_with_read(umi, umi_us,
+                                                              passed)),
+        ("computeconsensus", lambda: compute_consensus(
+            umi_us, out / "consensus.fastq", device=device,
+            log_json=out / "consensus.fastq.log")))
+    counters = path_counters()
+    steps = {}
+    for name, fn in todo:
+        if on_step is not None:
+            on_step(name)
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        res = fn()
+        if str(device) == "cuda":
+            import torch
+            torch.cuda.synchronize()
+        steps[name] = {"s": time.perf_counter() - t, "result": res,
+                       "launches": {k: c.launches for k, c in
+                                    counters.items() if c.launches}}
+    files = {str(f.relative_to(out)): f.read_bytes()
+             for f in sorted(out.rglob("*")) if f.is_file()
+             and f.name != "ReadScanner.html"}
+    return steps, files
+
+
+def gap_pairs(rng, Lc, n):
+    """(R, Q) pairs of the aligner's Lc bucket: R of Lc/2 + 1 .. Lc bases
+    (1 .. 64 at Lc 64), Q a copy at 5% noise whose length differs from R's
+    by up to W/2 - 5; every 16th pair differs by W/2 - 4 .. W (outside the
+    band: infeasible) and every 37th has an empty Q."""
+    import numpy as np
+
+    from sicelore_tpu_torch.ops import poa_cuda
+    from sicelore_tpu_torch.utils import synth
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    W = poa_cuda.w_for(Lc)
+    lo = 1 if Lc == 64 else Lc // 2 + 1
+    pairs = []
+    for i in range(n):
+        R = acgt[rng.integers(0, 4, int(rng.integers(lo, Lc + 1)))].tobytes()
+        Q = synth.mutate_np(rng, R, 0.05)
+        d = (int(rng.integers(W // 2 - 4, W + 1)) if i % 16 == 5
+             else int(rng.integers(0, W // 2 - 4)))
+        d = d if rng.random() < 0.5 or len(R) <= d else -d
+        want = max(len(R) + d, 0)
+        Q = (Q + acgt[rng.integers(0, 4, max(want - len(Q), 0))].tobytes()
+             )[:want]
+        pairs.append((R, b"" if i % 37 == 3 else Q))
+    return pairs
 
 
 def main() -> int:
@@ -1605,6 +1894,73 @@ def _run(pool, wl, cells, work, dev) -> int:
                                           Lc, W), bvars[1:])
         del reads_d, rl_d, mids_d, cmol_d, clm_d, bvars
         torch.cuda.empty_cache()
+    # the aligner's gap buckets (Lc 64-256, W 32): pairs as GapBatcher
+    # builds them, each its own molecule
+    from sicelore_tpu_torch.align import extend
+    gb = extend.GapBatcher(dev)
+    for Lc, n_pairs in GAP_SHAPES:
+        W = poa_cuda.w_for(Lc)
+        pairs = gap_pairs(np.random.default_rng(SEED + 800 + Lc), Lc,
+                          n_pairs)
+        reads_d, rl_d, cmol_d, clm_d = gb._build_bucket(pairs, Lc, W)
+        P = reads_d.shape[0]
+        mids_d = torch.arange(P, dtype=torch.int32, device=dev)
+        ar = torch.arange(P, device=dev)
+
+        def mutate_gaps(r):
+            """One substituted base per read, inside the read."""
+            r = r.clone()
+            col = (torch.rand(P, device=dev, generator=g)
+                   * rl_d.clamp(min=1)).long()
+            r[ar, col] = torch.where(
+                rl_d > 0, torch.randint(0, 4, (P,), device=dev, generator=g,
+                                        dtype=torch.int8), r[ar, col])
+            return r
+
+        def gap_call(r):
+            return poa_cuda.band_align(r, rl_d, mids_d, cmol_d, clm_d, Lc, W)
+
+        key = f"bandalign_gap_{Lc}_{W}"
+        gvars = [reads_d] + [mutate_gaps(reads_d)
+                             for _ in range(TIMED_CALLS)]
+        results[key] = compare(
+            key, gap_call,
+            lambda r: poa_cuda.band_align_plain(r, rl_d, mids_d, cmol_d,
+                                                clm_d, Lc, W), gvars)
+        band_cells = int(clm_d.sum()) * W
+        results[key].update(bound(
+            nbytes(reads_d, rl_d, mids_d, cmol_d, clm_d)
+            + P * (Lc + 1) * (1 + 4 * poa_cuda.K_INS) + 4 * P,
+            band_cells * BAND_CELL_OPS, int32_hz))
+        feas = gap_call(reads_d)[2]
+        results[key].update({
+            "pairs": P, "band_cells": band_cells,
+            "feasible": int(feas.sum()),
+            "device_ms": device_ms(gap_call, gvars[1:]),
+            "burst_ms": burst_ms(gap_call, gvars[1:])})
+        del reads_d, rl_d, mids_d, cmol_d, clm_d, gvars
+    # the batched UMI distances at a large group: 256 UMIs of 12 nt and a
+    # class of 32 of 16 nt against all 288 texts (not a Pallas kernel: one
+    # torch body on both devices; CUDA is held to the CPU)
+    urng = np.random.default_rng(SEED + 900)
+    umis = [dna.decode(urng.integers(0, 4, m)).encode()
+            for m, n in UMI_GROUP for _ in range(n)]
+    tx_np, tl_np = dna.encode_batch(umis, max(m for m, _ in UMI_GROUP))
+    tx_d = torch.from_numpy(tx_np[None]).to(dev)
+    tl_d = torch.from_numpy(tl_np.astype(np.int32)[None]).to(dev)
+    mgp, first = {}, 0
+    for m, n in UMI_GROUP:
+        peq = editdist.build_peq(tx_np[first:first + n, :m])[None]
+        first += n
+        ms, outs = timed(lambda _: editdist.myers_global_pairwise(
+            peq, tx_d, tl_d, m), [None] * TIMED_CALLS,
+            torch.cuda.synchronize)
+        cpu = editdist.myers_global_pairwise(peq, tx_d.cpu(), tl_d.cpu(), m)
+        mgp[f"m{m}"] = {"patterns": n, "texts": len(umis), "ms": ms,
+                        "mismatches": int((outs[0].cpu() != cpu).sum())}
+    results["myers_global_pairwise"] = {
+        "mismatches": sum(v["mismatches"] for v in mgp.values()),
+        "held_against": "the same torch body on the CPU", **mgp}
     # pairs the regrouped kernel could get wrong: P not a multiple of the
     # pairs a warp holds, infeasible pairs, paths along the band's edge,
     # empty reads, a center of length 0
@@ -1900,8 +2256,9 @@ def _run(pool, wl, cells, work, dev) -> int:
     # where the phase's time goes: the same run again with a timer (and a
     # device sync) around each stage
     t0 = time.time()
-    split = consensus_split(work / "cons.bam", work / "cons_split.fastq")
-    emit({"phase": "consensus_split", "seconds": split,
+    cons_split = consensus_split(work / "cons.bam",
+                                 work / "cons_split.fastq")
+    emit({"phase": "consensus_split", "seconds": cons_split,
           "s": round(time.time() - t0, 2)})
     if (work / "cons_split.fastq").read_bytes() != \
             (work / "cons_cuda.fastq").read_bytes():
@@ -1922,6 +2279,163 @@ def _run(pool, wl, cells, work, dev) -> int:
           "s": round(time.time() - t0, 2)})
     if blobs["cuda"] != blobs["cpu"] or not blobs["cuda"][0]:
         raise SystemExit("cuda/cpu consensus outputs differ")
+
+    # ---- Steps 1 -> 2 -> 3 -> 4b on cuda: fastq to consensus ----
+    t0 = time.time()
+    from sicelore_tpu_torch.align import aligner as aln_mod
+    from sicelore_tpu_torch.core import umicluster
+    from sicelore_tpu_torch.io import bam as bam_mod
+    from sicelore_tpu_torch.pipeline import assignumis as umi_mod
+    crng = np.random.default_rng(SEED + 1000)
+    cwl = synth.make_whitelist(crng, CHAIN_WHITELIST)
+    ccells = [cwl[i] for i in sorted(crng.choice(
+        CHAIN_WHITELIST, CHAIN_CELLS, replace=False).tolist())]
+    contigs, genes = chain_genome(crng, CHAIN_CONTIGS, CHAIN_CONTIG_LEN,
+                                  CHAIN_GENES)
+    cdir = work / "chain"
+    (cdir / "fq").mkdir(parents=True)
+    (cdir / "sub").mkdir()
+    ref, refflat = cdir / "ref.fa", cdir / "ref.refflat"
+    write_chain_refs(contigs, genes, ref, refflat)
+    creads, group_gene = chain_reads(crng, contigs, genes, ccells,
+                                     CHAIN_READS, CHAIN_BIG_GROUPS,
+                                     big_mols=CHAIN_BIG_MOLECULES)
+    write_reads(cdir / "fq" / "reads.fastq", creads)
+    # the parity subset: the reads of the first large group, then of small
+    # groups, up to CHAIN_PARITY reads
+    keep, n_sub = {0}, sum(r[3] == 0 for r in creads)
+    per_group = np.bincount([r[3] for r in creads])
+    for gi in range(CHAIN_BIG_GROUPS, len(group_gene)):
+        if n_sub + per_group[gi] > CHAIN_PARITY:
+            break
+        keep.add(gi)
+        n_sub += int(per_group[gi])
+    write_reads(cdir / "sub" / "reads.fastq",
+                [r for r in creads if r[3] in keep])
+    gen_s = time.time() - t0
+    # the run itself carries the timers (a device sync around the device
+    # parts): wrappers of methods without launch counters only
+    secs, buckets, ed_calls = {}, [], []
+    step = {"name": ""}
+
+    def record_bucket(self, reads, rlens, cent, clens, Lc, W):
+        buckets.append((Lc, int(reads.shape[0])))
+        return inner_bucket(self, reads, rlens, cent, clens, Lc, W)
+
+    def record_ed(umis, device="cuda"):
+        ed_calls.append((str(device), len(umis)))
+        return inner_ed(umis, device)
+
+    undo = [timed_fn(secs, aln_mod.NativeAligner, "_plan", "align_planning"),
+            timed_fn(secs, extend.GapBatcher, "_build_bucket",
+                     "align_bucket_build"),
+            timed_fn(secs, extend.GapBatcher, "_align_bucket",
+                     "align_device", sync=True),
+            timed_fn(secs, aln_mod.NativeAligner, "_finish_read",
+                     "align_finish"),
+            timed_fn(secs, aln_mod.NativeAligner, "_write_bam",
+                     "align_bam_write"),
+            timed_fn(secs, umi_mod, "cluster_group", "umi_clustering"),
+            timed_fn(secs, umicluster, "_pairwise_ed_device",
+                     "umi_device_ed", sync=True),
+            timed_fn(secs, aln_mod.idx, "MinimizerIndex", "align_index"),
+            timed_fn(secs, bam_mod.BamWriter, "write",
+                     lambda: f"records_written_{step['name']}")]
+    inner_bucket = extend.GapBatcher._align_bucket
+    inner_ed = umicluster._pairwise_ed_device
+    extend.GapBatcher._align_bucket = record_bucket
+    umicluster._pairwise_ed_device = record_ed
+    undo += [lambda: setattr(extend.GapBatcher, "_align_bucket",
+                             inner_bucket),
+             lambda: setattr(umicluster, "_pairwise_ed_device", inner_ed)]
+    try:
+        steps, _ = chain_steps("cuda", cdir / "fq", ref, refflat, cwl,
+                               cdir / "run",
+                               on_step=lambda n: step.update(name=n))
+    finally:
+        for u in reversed(undo):
+            u()
+    n_prim, n_map, n_ge = chain_truth(cdir / "run" / "aligned.bam",
+                                      cdir / "run" / "umi.bam", genes)
+    al, um = steps["align"], steps["assignumis"]
+    umi_total = um["result"]["total_records"]
+    split = {
+        "align": {k: secs.get(f"align_{k}", 0.0) for k in (
+            "index", "planning", "bucket_build", "device", "finish",
+            "bam_write")},
+        "assignumis": {"device_ed": secs.get("umi_device_ed", 0.0),
+                       "clustering_host": secs.get("umi_clustering", 0.0)
+                       - secs.get("umi_device_ed", 0.0),
+                       "write": secs.get("records_written_assignumis",
+                                         0.0)}}
+    split["align"]["rest"] = al["s"] - sum(split["align"].values())
+    split["assignumis"]["parse_tag_rest"] = um["s"] - (
+        secs.get("umi_clustering", 0.0) + split["assignumis"]["write"])
+    by_lc = {}
+    for Lc, P in buckets:
+        c = by_lc.setdefault(str(Lc), {"calls": 0, "pairs": 0})
+        c["calls"] += 1
+        c["pairs"] += P
+    hostenc = native.get_hostenc()
+    cons = steps["computeconsensus"]["result"]
+    chain = {
+        "phase": "steps_1_to_4b", "reads": CHAIN_READS,
+        "genome_bases": CHAIN_CONTIGS * CHAIN_CONTIG_LEN,
+        "genes": CHAIN_GENES, "cells": CHAIN_CELLS,
+        "groups": len(group_gene), "large_groups": CHAIN_BIG_GROUPS,
+        "step_s": {k: round(v["s"], 3) for k, v in steps.items()},
+        "launches": {k: v["launches"] for k, v in steps.items()},
+        "align_reads_per_s": round(al["result"]["reads"] / al["s"], 1),
+        "assignumis_records_per_s": round(umi_total / um["s"], 1),
+        "split_s": {k: {kk: round(vv, 3) for kk, vv in v.items()}
+                    for k, v in split.items()},
+        "gap_buckets": by_lc, "device_ed_calls": len(ed_calls),
+        "device_ed_devices": sorted({d for d, _ in ed_calls}),
+        "device_ed_max_umis": max((k for _, k in ed_calls), default=0),
+        "hostenc_chain_dp": bool(hostenc and hasattr(hostenc, "chain_dp")),
+        "hostenc_build_minimizers": bool(
+            hostenc and hasattr(hostenc, "build_minimizers")),
+        "aligned": al["result"], "umis": {k: um["result"][k] for k in (
+            "total_records", "umi_assigned", "clustered", "singletons",
+            "groups")},
+        "consensus": cons, "primary_records": n_prim,
+        "true_gene_share": n_map / max(n_prim, 1),
+        "ge_share": n_ge / max(n_prim, 1), "data_s": round(gen_s, 2)}
+    plain = {k: v for st in steps.values() for k, v in st["launches"].items()
+             if k.startswith("plain_") or k in ("edge_composed", "win1")}
+    bad = []
+    if min(steps["scanfastq"]["launches"].get(k, 0)
+           for k in ("edgescan", "bcsweep", "tilescan")) < 1:
+        bad.append("scanfastq did not launch its kernels")
+    if al["launches"].get("bandalign", 0) < 1:
+        bad.append("the aligner did not launch band_align")
+    if um["launches"].get("myers_global_pairwise", 0) < 1 or \
+            {d for d, _ in ed_calls} != {"cuda"}:
+        bad.append("assignumis ran no batched distance on the card")
+    if steps["computeconsensus"]["launches"].get("bandalign", 0) < 1:
+        bad.append("computeconsensus did not launch band_align")
+    if plain:
+        bad.append(f"plain bodies ran: {plain}")
+    if (n_prim < 0.95 * CHAIN_READS
+            or chain["true_gene_share"] < CHAIN_MIN_SHARE
+            or chain["ge_share"] < CHAIN_MIN_SHARE
+            or not 0 < cons["written"] == cons["molecules"]):
+        bad.append("outputs off the generator's truth")
+    # CUDA == CPU bytes for every file of the subset's whole chain
+    blobs = {}
+    for d in ("cuda", "cpu"):
+        _, blobs[d] = chain_steps(d, cdir / "sub", ref, refflat, cwl,
+                                  cdir / f"par_{d}")
+    diff = sorted(k for k in set(blobs["cuda"]) | set(blobs["cpu"])
+                  if blobs["cuda"].get(k) != blobs["cpu"].get(k))
+    chain.update({"parity_reads": n_sub, "parity_files": len(blobs["cuda"]),
+                  "parity_differ": diff, "s": round(time.time() - t0, 2)})
+    emit(chain)
+    if diff or len(blobs["cuda"]) < 12:
+        bad.append(f"cuda/cpu chain outputs differ: {diff}")
+    if bad:
+        raise SystemExit(f"steps_1_to_4b: {bad}")
+    launches["bandalign_align"] = al["launches"]["bandalign"]
 
     src = {"edgescan": ("sicelore_tpu_torch/csrc/edgescan.cu",
                         "sicelore_tpu/ops/edgescan_tpu.py:87", "edgescan"),
@@ -2008,6 +2522,20 @@ def _run(pool, wl, cells, work, dev) -> int:
                                            o["max_abs_err"])
             entry["edge_case_mismatches"] = \
                 results["bandalign_edge_cases"]["mismatches"]
+            # the aligner's gap buckets: launches in the chained run's
+            # align step (`launches` is the consensus run's)
+            entry["launches_align"] = launches["bandalign_align"]
+            for Lc, _ in GAP_SHAPES:
+                W = poa_cuda.w_for(Lc)
+                o = results[f"bandalign_gap_{Lc}_{W}"]
+                entry.update({f"ms_gap_{Lc}_{W}": o["ms"],
+                              f"device_ms_gap_{Lc}_{W}": o["device_ms"],
+                              f"burst_ms_gap_{Lc}_{W}": o["burst_ms"],
+                              f"plain_ms_gap_{Lc}_{W}": o["plain_ms"],
+                              f"bound_ms_gap_{Lc}_{W}": o["bound_ms"],
+                              f"pairs_gap_{Lc}_{W}": o["pairs"]})
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           o["max_abs_err"])
         if name == "win1":
             entry.update({"windows": r["windows"], "columns": r["columns"],
                           "device_ms": r["device_ms"],
@@ -2046,7 +2574,16 @@ def _run(pool, wl, cells, work, dev) -> int:
                       "scanfastq_split_s": splits,
                       "consensus_umis_per_s": round(N_MOLECULES / cons_s, 1),
                       "consensus_run_s": round(cons_s, 3),
-                      "consensus_split_s": split,
+                      "consensus_split_s": cons_split,
+                      "align_reads_per_s": chain["align_reads_per_s"],
+                      "assignumis_records_per_s":
+                          chain["assignumis_records_per_s"],
+                      "chain_step_s": chain["step_s"],
+                      "chain_split_s": chain["split_s"],
+                      "myers_global_pairwise_ms": {
+                          k: v["ms"] for k, v in
+                          results["myers_global_pairwise"].items()
+                          if isinstance(v, dict)},
                       "build_s": _build.build_seconds,
                       "script_s": round(time.time() - T_START, 1)}})
     emit({"kernels": kernels})

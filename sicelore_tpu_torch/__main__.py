@@ -5,11 +5,20 @@
   python -m sicelore_tpu_torch computeconsensus -I <tagged BAM> -O <fastq>
          [--MAXREADS 20 --MINPS 3 --MAXPS 20 --refine --host-engine]
          [--device cuda|cpu]
+  python -m sicelore_tpu_torch align -r <genome fasta> -d <fastq|dir>
+         -O <sorted BAM> [--juncBed <bed>] [--keep-unmapped] [--device ...]
+  python -m sicelore_tpu_torch assignumis -i <sorted BAM> -o <tagged BAM>
+         [-a <refFlat>] [-f] [--illumina <table>] [--device cuda|cpu]
+  python -m sicelore_tpu_torch parseillumina -I <Illumina BAM> -O <table>
+  python -m sicelore_tpu_torch samview -I <BAM|SAM> -O <SAM|BAM>
   python -m sicelore_tpu_torch env
 
-`scanfastq` and `computeconsensus` take the flags of the same commands of
-`python -m sicelore_tpu` plus `--device` (default cuda: the hand-written
-kernels; cpu runs the plain torch bodies). `env` reports the torch/CUDA
+Every command takes the flags of the same command of `python -m
+sicelore_tpu` plus `--device` (default cuda: the hand-written kernels;
+cpu runs the plain torch bodies; cuda without a GPU raises). `align` runs
+its gap extension through the band kernel, `assignumis` the UMI distance
+matrices of large groups on the device; `parseillumina` and `samview` do
+no device work and only check the choice. `env` reports the torch/CUDA
 build, the GPU, and whether nvcc, triton and the native host codecs are
 present.
 """
@@ -133,6 +142,117 @@ def cmd_computeconsensus(args) -> int:
     return 0
 
 
+def _device_arg(p, help_text):
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help=help_text)
+
+
+def _add_align(sub):
+    p = sub.add_parser("align", help="spliced long-read alignment -> "
+                       "sorted BAM+BAI (the minimap2 -ax splice role, "
+                       "framework-native)")
+    p.add_argument("-r", "--reference", required=True, help="genome fasta")
+    p.add_argument("-d", "--fastq", required=True,
+                   help="fastq file or directory")
+    p.add_argument("-O", "--OUTPUT", required=True, help="output BAM")
+    p.add_argument("--juncBed", default=None,
+                   help="annotated junction BED (chrom/start/end), the "
+                        "minimap2 --junc-bed role")
+    p.add_argument("--keep-unmapped", action="store_true")
+    _device_arg(p, "cuda: the band kernel for the gap extension; cpu: its "
+                   "plain torch version")
+    return p
+
+
+def cmd_align(args) -> int:
+    from sicelore_tpu_torch.align import NativeAligner
+
+    aln = NativeAligner(args.reference, junc_bed=args.juncBed,
+                        device=args.device)
+    r = aln.align_fastq_to_bam(args.fastq, args.OUTPUT,
+                               keep_unmapped=args.keep_unmapped)
+    print(f"align done: {r['mapped']}/{r['reads']} reads mapped")
+    return 0
+
+
+def _add_assignumis(sub):
+    p = sub.add_parser("assignumis", help="per-cell per-region UMI "
+                       "clustering on a sorted BAM (reference assignumis)")
+    p.add_argument("-i", "--inFileNanopore", required=True,
+                   help="sorted Nanopore BAM (scanfastq read names)")
+    p.add_argument("-o", "--outfile", required=True)
+    p.add_argument("-a", "--annotationFile", default=None,
+                   help="refFlat for GE gene tagging + genecounts")
+    p.add_argument("-f", "--randomUMI", action="store_true",
+                   help="negative control: random UMI sequences")
+    p.add_argument("--illumina", default=None,
+                   help="parseillumina table (json.gz) for guided mode")
+    p.add_argument("--config", default=None)
+    _device_arg(p, "cuda: the UMI distance matrices of large groups on the "
+                   "card; cpu: the same torch body on the host")
+    return p
+
+
+def cmd_assignumis(args) -> int:
+    from sicelore_tpu_torch.pipeline.assignumis import AssignUmisPipeline
+    from sicelore_tpu_torch.utils.config import PipelineConfig, load_config_xml
+
+    cfg = load_config_xml(args.config) if args.config else PipelineConfig()
+    illum = None
+    if args.illumina:
+        from sicelore_tpu_torch.pipeline.illumina import GuidedUmiTable
+        illum = GuidedUmiTable(args.illumina)
+    pipe = AssignUmisPipeline(cfg, refflat=args.annotationFile,
+                              random_umi=args.randomUMI,
+                              illumina_table=illum, device=args.device)
+    out = Path(args.outfile)
+    stats = pipe.run(args.inFileNanopore, out,
+                     genecounts_tsv=out.with_suffix("").with_name(
+                         out.stem + ".genecounts.tsv"),
+                     umidepths_tsv=out.with_suffix("").with_name(
+                         out.stem + ".UMIdepths.tsv"),
+                     log_json=str(out) + ".log")
+    print(f"assignumis done: {stats.total_records} records, "
+          f"{stats.umi_assigned} UMI-assigned "
+          f"({stats.clustered} clusters, {stats.singletons} singletons)")
+    return 0
+
+
+def _add_host_commands(sub):
+    host = "this command does no device work; the choice is only checked"
+    p = sub.add_parser("parseillumina", help="serialize an Illumina 10x BAM "
+                       "into a guided-mode table (reference parseillumina/"
+                       "BamSerializer)")
+    p.add_argument("-I", "--INPUT", required=True, help="Illumina BAM "
+                   "(CB/UB/GN tags)")
+    p.add_argument("-O", "--OUTPUT", required=True, help="table json.gz")
+    _device_arg(p, host)
+    p = sub.add_parser("samview", help="SAM <-> BAM conversion "
+                       "(samtools-view role)")
+    p.add_argument("-I", "--INPUT", required=True)
+    p.add_argument("-O", "--OUTPUT", required=True)
+    _device_arg(p, host)
+
+
+def cmd_parseillumina(args) -> int:
+    from sicelore_tpu_torch.pipeline.illumina import parse_illumina_bam
+
+    r = parse_illumina_bam(args.INPUT, args.OUTPUT)
+    print(f"parseillumina done: {r}")
+    return 0
+
+
+def cmd_samview(args) -> int:
+    from sicelore_tpu_torch.io import sam
+
+    if str(args.INPUT).endswith(".bam"):
+        n = sam.bam_to_sam(args.INPUT, args.OUTPUT)
+    else:
+        n = sam.sam_to_bam(args.INPUT, args.OUTPUT)
+    print(f"samview done: {{'records': {n}}}")
+    return 0
+
+
 def cmd_env(args) -> int:
     import torch
 
@@ -157,10 +277,15 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_scanfastq(sub)
     _add_computeconsensus(sub)
+    _add_align(sub)
+    _add_assignumis(sub)
+    _add_host_commands(sub)
     sub.add_parser("env", help="report the torch/CUDA/kernel toolchain")
     args = ap.parse_args(argv)
     return {"scanfastq": cmd_scanfastq,
             "computeconsensus": cmd_computeconsensus,
+            "align": cmd_align, "assignumis": cmd_assignumis,
+            "parseillumina": cmd_parseillumina, "samview": cmd_samview,
             "env": cmd_env}[args.cmd](args)
 
 

@@ -1,8 +1,10 @@
-"""Myers bit-parallel semi-global edit distance: plain PyTorch, and the
-single-pattern window search kernel (csrc/win1.cu).
+"""Myers bit-parallel edit distance: the semi-global sweep and the global
+pairwise matrix in plain PyTorch, and the single-pattern window search
+kernel (csrc/win1.cu).
 
 Port of `sicelore_tpu/ops/editdist.py` (`build_peq`, the Hyyrö column update,
-`_eq_select`, `myers_sweep`, `best_two`, `myers_win1_pallas`). Patterns are
+`_eq_select`, `myers_sweep`, `best_two`, `myers_global_pairwise`,
+`myers_win1_pallas`). Patterns are
 Peq bitmasks: bit i of Peq[c, n] is set iff pattern n position i equals base
 c. N and PAD text characters select an all-zero mask, so they never match.
 
@@ -155,3 +157,48 @@ def best_two(ed: torch.Tensor):
                          torch.full_like(ed, INT_MAX), ed)
     second, second_idx = torch.min(masked, dim=1)
     return best, idx, second, second_idx.to(torch.int32)
+
+
+def myers_global_pairwise(peq_g: np.ndarray, texts: torch.Tensor,
+                          tlens: torch.Tensor, m: int) -> torch.Tensor:
+    """Global Levenshtein of pattern i against text j for all pairs of each
+    group: the UMI-clustering distance matrix.
+
+    peq_g [G, 4, P] uint32 Peq of the P patterns of each group (`build_peq`
+    per group), texts [G, K, L] int8 codes, tlens [G, K] true text
+    lengths, m the patterns' length (1..32). Returns
+    ed [G, P, K] int32, ed[g, i, j] = Levenshtein(pattern i, text j); the
+    score is taken after column tlens[g, j], so entries of empty texts stay
+    at m. N and PAD select no pattern bit: N matches nothing, N included.
+    Plain PyTorch on either device (the JAX function is a jnp scan, not a
+    Pallas kernel); `.launches` counts its calls."""
+    if not 1 <= m <= 32:
+        raise ValueError(f"pattern length must be 1..32, got {m}")
+    if texts.dim() != 3 or tlens.shape != texts.shape[:2]:
+        raise ValueError(f"texts must be [G, K, L] and tlens [G, K], got "
+                         f"{tuple(texts.shape)} and {tuple(tlens.shape)}")
+    myers_global_pairwise.launches += 1
+    dev = texts.device
+    peq_g = torch.from_numpy(peq_g.astype(np.int64)).to(dev)
+    G, K, L = texts.shape
+    P = peq_g.shape[2]
+    # [G, 6, P]: rows 4 and 5 (N, PAD) select no bit
+    peq6 = torch.cat([peq_g, torch.zeros((G, 2, P), dtype=torch.int64,
+                                         device=dev)], dim=1)
+    tl = tlens.to(device=dev, dtype=torch.int64)
+    # the state is carried [G, K, P] (one gather a column) and transposed
+    # at the end
+    PV = torch.full((G, K, P), (1 << m) - 1, dtype=torch.int64, device=dev)
+    MV = torch.zeros_like(PV)
+    score = torch.full((G, K, P), m, dtype=torch.int32, device=dev)
+    out = score.clone()
+    tx = texts.to(torch.int64)
+    for t in range(L):
+        idx = tx[:, :, t, None].expand(G, K, P)
+        eq = torch.gather(peq6, 1, idx)
+        PV, MV, score = hyyro_step(PV, MV, score, eq, m - 1, 1)
+        out = torch.where((tl == t + 1)[:, :, None], score, out)
+    return out.transpose(1, 2).contiguous()
+
+
+myers_global_pairwise.launches = 0

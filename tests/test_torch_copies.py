@@ -6,25 +6,37 @@ import dataclasses
 import numpy as np
 import pytest
 
+from sicelore_tpu.align import chain as j_chain
+from sicelore_tpu.align import index as j_index
+from sicelore_tpu.core import genetag as j_genetag
 from sicelore_tpu.core import longread as j_longread
 from sicelore_tpu.core import molecule as j_molecule
 from sicelore_tpu.io import bam as j_bam
 from sicelore_tpu.io import bgzf as j_bgzf
 from sicelore_tpu.io import fastq as j_fastq
 from sicelore_tpu.io import native as j_native
+from sicelore_tpu.io import sam as j_sam
 from sicelore_tpu.ops import poa as j_poa
+from sicelore_tpu.pipeline import illumina as j_illumina
+from sicelore_tpu.pipeline import programs as j_programs
 from sicelore_tpu.pipeline import readname as j_readname
 from sicelore_tpu.report import html as j_html
 from sicelore_tpu.utils import config as j_config
 from sicelore_tpu.utils import dna as j_dna
 from sicelore_tpu.utils import synth as j_synth
+from sicelore_tpu_torch.align import chain as t_chain
+from sicelore_tpu_torch.align import index as t_index
+from sicelore_tpu_torch.core import genetag as t_genetag
 from sicelore_tpu_torch.core import longread as t_longread
 from sicelore_tpu_torch.core import molecule as t_molecule
 from sicelore_tpu_torch.io import bam as t_bam
 from sicelore_tpu_torch.io import bgzf as t_bgzf
 from sicelore_tpu_torch.io import fastq as t_fastq
 from sicelore_tpu_torch.io import native as t_native
+from sicelore_tpu_torch.io import sam as t_sam
 from sicelore_tpu_torch.ops import poa as t_poa
+from sicelore_tpu_torch.pipeline import illumina as t_illumina
+from sicelore_tpu_torch.pipeline import programs as t_programs
 from sicelore_tpu_torch.pipeline import readname as t_readname
 from sicelore_tpu_torch.report import html as t_html
 from sicelore_tpu_torch.utils import config as t_config
@@ -207,20 +219,186 @@ def _check_html():
     assert t_html.knee_plot(counts) == j_html.knee_plot(counts)
 
 
+def _genome(seed):
+    rng = np.random.default_rng(seed)
+    g = {"c1": j_synth.random_seq(rng, 30_000).encode(),
+         "c2": j_synth.random_seq(rng, 8_000).encode()}
+    reads = []
+    for i in range(12):
+        src = g["c1"] if i % 3 else g["c2"]
+        p = int(rng.integers(0, len(src) - 900))
+        r = j_synth.mutate(rng, src[p:p + int(rng.integers(200, 900))]
+                           .decode(), 0.05).encode()
+        reads.append(t_dna.revcomp_bytes(r) if i % 2 else r)
+    reads.append(g["c1"][1000:1400] + g["c1"][5000:5400])   # spliced
+    reads.append(b"ACGTN" * 40)
+    return g, reads
+
+
+def _without_hostenc(monkeypatch):
+    monkeypatch.setattr(t_native, "get_hostenc", lambda: None)
+    monkeypatch.setattr(j_native, "get_hostenc", lambda: None)
+
+
+def _check_index(tmp_path, monkeypatch, native: bool = True):
+    if not native:
+        _without_hostenc(monkeypatch)
+    g, reads = _genome(11)
+    for s in reads + [g["c2"]]:
+        for a, b in zip(t_index.minimizers(s), j_index.minimizers(s)):
+            np.testing.assert_array_equal(a, b)
+    ta, ja = t_index.MinimizerIndex(g), j_index.MinimizerIndex(g)
+    for f in ("h", "p", "s", "offsets"):
+        np.testing.assert_array_equal(getattr(ta, f), getattr(ja, f))
+    assert ta.contig_of(30_100 + t_index.GUARD) == \
+        ja.contig_of(30_100 + j_index.GUARD)
+    ta.save(tmp_path / "t.npz")
+    tb = t_index.MinimizerIndex.load(tmp_path / "t.npz")
+    for a, b in zip(tb.lookup(ja.h[:50]), ja.lookup(ja.h[:50])):
+        np.testing.assert_array_equal(a, b)
+    (tmp_path / "g.fa").write_bytes(b">x desc\nacgtNN\nAC\n>y\nGG\n")
+    assert t_index.load_fasta(tmp_path / "g.fa") == \
+        j_index.load_fasta(tmp_path / "g.fa")
+
+
+def _check_chain(monkeypatch, native: bool = True):
+    if not native:
+        _without_hostenc(monkeypatch)
+    g, reads = _genome(12)
+    ti, ji = t_index.MinimizerIndex(g), j_index.MinimizerIndex(g)
+    for s in reads:
+        a, b = t_chain.best_chains(s, ti), j_chain.best_chains(s, ji)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert x[:3] == y[:3]
+            np.testing.assert_array_equal(x[3], y[3])
+            np.testing.assert_array_equal(x[4], y[4])
+            assert t_chain.mapq(x[0], x[1]) == j_chain.mapq(y[0], y[1])
+        for st, (q, gg) in t_chain.read_anchors(s, ti).items():
+            f1, p1 = t_chain._chain_dp(q, gg, 15)
+            f2, p2 = j_chain._chain_dp(q, gg, 15)
+            np.testing.assert_array_equal(f1, f2)
+            np.testing.assert_array_equal(p1, p2)
+            assert [(c[0], c[1].tolist()) for c in
+                    t_chain.extract_chains(f1, p1)] == \
+                [(c[0], c[1].tolist()) for c in j_chain.extract_chains(f2, p2)]
+
+
+def _refflat(tmp_path):
+    p = tmp_path / "g.refflat"
+    p.write_text(
+        "GA\tTA1\tchr1\t+\t100\t900\t150\t800\t2\t100,500,\t300,900,\n"
+        "GA\tTA2\tchr1\t+\t100\t900\t100\t100\t1\t100,\t900,\n"
+        "GB\tTB\tchr1\t-\t600\t2000\t700\t1900\t2\t600,1500,\t"
+        "1000,2000,\n"
+        "GC\tTC\tchr2\t+\t10\t500\t10\t500\t1\t10,\t500,\n")
+    return p
+
+
+def _check_genetag(tmp_path):
+    from sicelore_tpu.core.refflat import RefFlatModel as JModel
+    from sicelore_tpu_torch.core.refflat import RefFlatModel as TModel
+    p = _refflat(tmp_path)
+    ta = t_genetag.GeneTagger(TModel.load(p))
+    ja = j_genetag.GeneTagger(JModel.load(p))
+    rng = np.random.default_rng(13)
+    for _ in range(200):
+        chrom = ("chr1", "chr2", "chr3")[int(rng.integers(0, 3))]
+        s = int(rng.integers(1, 2100))
+        blocks = [(s, s + int(rng.integers(1, 300)))]
+        if rng.random() < 0.5:
+            s2 = blocks[0][1] + int(rng.integers(50, 600))
+            blocks.append((s2, s2 + int(rng.integers(1, 200))))
+        strand = (None, "+", "-")[int(rng.integers(0, 3))]
+        assert ta.annotate(chrom, blocks, strand) == \
+            ja.annotate(chrom, blocks, strand)
+        assert ta.tag(chrom, blocks, strand) == ja.tag(chrom, blocks, strand)
+
+
+def _check_sam(tmp_path):
+    hdr = ("@HD\tVN:1.6\n@SQ\tSN:chr1\tLN:100000\n", [("chr1", 100000)])
+    bam = tmp_path / "r.bam"
+    with t_bam.BamWriter(bam, t_bam.BamHeader(*hdr)) as w:
+        for r in _records(t_bam, np.random.default_rng(14)):
+            w.write(r)
+    assert t_sam.bam_to_sam(bam, tmp_path / "t.sam") == \
+        j_sam.bam_to_sam(bam, tmp_path / "j.sam") == 40
+    assert (tmp_path / "t.sam").read_bytes() == \
+        (tmp_path / "j.sam").read_bytes()
+    t_sam.sam_to_bam(tmp_path / "t.sam", tmp_path / "t2.bam")
+    j_sam.sam_to_bam(tmp_path / "t.sam", tmp_path / "j2.bam")
+    assert (tmp_path / "t2.bam").read_bytes() == \
+        (tmp_path / "j2.bam").read_bytes()
+
+
+def _check_illumina(tmp_path):
+    hdr = t_bam.BamHeader("@SQ\tSN:chr1\tLN:100000\n", [("chr1", 100000)])
+    p = tmp_path / "ill.bam"
+    with t_bam.BamWriter(p, hdr) as w:
+        for i, (cb, ub, gn, fl) in enumerate([
+                ("CELL1-1", "AAACCCGGG", "GENEA", 0),
+                ("CELL1-1", "TTTTTTTTT", "GENEA", 16),
+                ("CELL2-1", "CCCCCCCCC", None, 0)]):
+            tags = [("CB", "Z", cb), ("UB", "Z", ub)]
+            if gn:
+                tags.append(("GN", "Z", gn))
+            w.write(t_bam.BamRecord(qname=f"i{i}", flag=fl, ref_id=0,
+                                    pos=100 * i, mapq=60, cigar=[("M", 4)],
+                                    seq="ACGT", qual=b"\x28" * 4, tags=tags))
+    for name, mod in (("t", t_illumina), ("j", j_illumina)):
+        (tmp_path / name).mkdir()
+        mod.parse_illumina_bam(p, tmp_path / name / "tab.json.gz")
+    ta = t_illumina.GuidedUmiTable(tmp_path / "t" / "tab.json.gz")
+    ja = j_illumina.GuidedUmiTable(tmp_path / "j" / "tab.json.gz")
+    for umi in (b"AAACCCGGT", b"AAACCCGTT", b"GGGGGGAAA"):
+        assert ta.snap("GENEA", "CELL1", umi, max_ed=1) == \
+            ja.snap("GENEA", "CELL1", umi, max_ed=1)
+    for q in (b"CELL1", b"CELL2", b"CELLX"):
+        assert ta.guided_bc(q, contig="chr1", pos3=150) == \
+            ja.guided_bc(q, contig="chr1", pos3=150)
+
+
+def _check_programs(tmp_path):
+    """tagbamwithread, the step between assignumis and computeconsensus."""
+    hdr = t_bam.BamHeader("@SQ\tSN:chr1\tLN:100000\n", [("chr1", 100000)])
+    bam = tmp_path / "in.bam"
+    recs = _records(t_bam, np.random.default_rng(15))
+    with t_bam.BamWriter(bam, hdr) as w:
+        for r in recs:
+            w.write(r)
+    (tmp_path / "fq").mkdir()
+    with open(tmp_path / "fq" / "a.fastq", "wb") as fh:
+        for r in recs[::2]:
+            fh.write(b"@%s\n%s\n+\n%s\n" % (r.qname.encode(), r.seq.encode(),
+                                             b"I" * len(r.seq)))
+    a = t_programs.tag_bam_with_read(bam, tmp_path / "t.bam", tmp_path / "fq")
+    b = j_programs.tag_bam_with_read(bam, tmp_path / "j.bam", tmp_path / "fq")
+    assert a == b == {"records": 40, "tagged": 20}
+    assert (tmp_path / "t.bam").read_bytes() == \
+        (tmp_path / "j.bam").read_bytes()
+
+
 CHECKS = {
     "dna": _check_dna, "config": _check_config, "synth": _check_synth,
     "readname": _check_readname, "fastq": _check_fastq, "bam": _check_bam,
     "molecules": _check_molecules, "poa": _check_poa,
     "native": _check_native, "html": _check_html,
+    "index": _check_index,
+    "index_numpy": lambda tmp_path, monkeypatch: _check_index(
+        tmp_path, monkeypatch, native=False),
+    "chain": _check_chain,
+    "chain_numpy": lambda monkeypatch: _check_chain(monkeypatch,
+                                                    native=False),
+    "genetag": _check_genetag, "sam": _check_sam,
+    "illumina": _check_illumina, "programs": _check_programs,
 }
 
 
 @pytest.mark.parametrize("module", sorted(CHECKS))
-def test_copy_matches_original(module, tmp_path):
+def test_copy_matches_original(module, tmp_path, monkeypatch):
     import inspect
 
     fn = CHECKS[module]
-    if inspect.signature(fn).parameters:
-        fn(tmp_path)
-    else:
-        fn()
+    args = {"tmp_path": tmp_path, "monkeypatch": monkeypatch}
+    fn(**{n: args[n] for n, p in inspect.signature(fn).parameters.items()
+          if p.default is p.empty})

@@ -485,3 +485,95 @@ def test_consensus_engine_cuda_matches_cpu(dev):
     got = pc.BatchedConsensusEngine(device="cuda")(mols, refine=True)
     ref = pc.BatchedConsensusEngine(device="cpu")(mols, refine=True)
     assert got == ref
+
+
+@pytest.mark.parametrize("Lc", [64, 128, 256])
+def test_band_kernel_gap_shapes_match_plain(dev, Lc):
+    """The aligner's gap buckets (W = 32): pairs as GapBatcher builds them
+    (each its own molecule), with infeasible and empty ones. The pairs the
+    N screen lets through hold ACGT only, and the kernel's feasible agrees
+    with the plain version's on every pair."""
+    from sicelore_tpu_torch.align import extend
+
+    pairs = chip_smoke.gap_pairs(np.random.default_rng(Lc), Lc, 300)
+    pairs.append((b"ACGTNACGTA" * 4, b"ACGTACGTA" * 4))
+    gb = extend.GapBatcher(dev)
+    screened = [gb.feasible(R, Q) for R, Q in pairs]
+    assert not screened[-1] and 250 < sum(screened) < len(pairs)
+    assert all(not (R + Q).translate(None, b"ACGT")
+               for (R, Q), ok in zip(pairs, screened) if ok)
+    W = pc.w_for(Lc)
+    reads, rlens, cent, clens = gb._build_bucket(pairs, Lc, W)
+    mids = torch.arange(len(pairs), dtype=torch.int32, device=dev)
+    before = pc.band_align.launches
+    k = pc.band_align(reads, rlens, mids, cent, clens, Lc, W)
+    assert pc.band_align.launches == before + 1
+    pl = pc.band_align_plain(reads, rlens, mids, cent, clens, Lc, W)
+    for a, b, what in zip(k, pl, ("aligned", "ins", "feasible")):
+        assert torch.equal(a, b), (what, int((a != b).sum()))
+    feas = k[2].cpu().numpy()
+    assert all(feas[i] for i, ok in enumerate(screened) if ok)
+
+
+def test_gap_batcher_cuda_matches_cpu(dev):
+    from sicelore_tpu_torch.align import extend
+
+    rng = np.random.default_rng(5)
+    got = {}
+    for d in ("cuda", "cpu"):
+        gb = extend.GapBatcher(d, pairs_per_call=97 if d == "cuda" else None)
+        for Lc, n in ((64, 400), (128, 60), (256, 20), (1024, 5)):
+            for R, Q in chip_smoke.gap_pairs(np.random.default_rng(Lc), Lc,
+                                             n):
+                if gb.feasible(R, Q):
+                    gb.add(R, Q)
+        gb.run()
+        got[d] = gb.results
+    assert sorted(got["cuda"]) == sorted(got["cpu"])
+    for Lc in got["cpu"]:
+        for a, b in zip(got["cuda"][Lc], got["cpu"][Lc]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_aligner_cuda_matches_cpu(dev):
+    from sicelore_tpu_torch.align import NativeAligner
+
+    rng = np.random.default_rng(100)
+    g = {"chrT": synth.random_seq(rng, 120_000).encode(),
+         "chrU": synth.random_seq(rng, 40_000).encode()}
+    names, reads = [], []
+    for i in range(40):
+        src = g["chrT"] if i % 3 else g["chrU"]
+        pos = int(rng.integers(1_000, len(src) - 1_500))
+        r = synth.mutate(rng, src[pos:pos + int(rng.integers(300, 1_300))]
+                         .decode(), 0.06).encode()
+        names.append(b"n%d" % i)
+        reads.append(dna.revcomp_bytes(r) if i % 2 else r)
+    before = pc.band_align.launches
+    got = NativeAligner(g, device="cuda").align_batch(names, reads)
+    assert pc.band_align.launches > before
+    ref = NativeAligner(g, device="cpu").align_batch(names, reads)
+    for a, b in zip(got, ref):
+        for f in ("qname", "flag", "ref_id", "pos", "mapq", "cigar", "seq",
+                  "qual", "tags"):
+            assert getattr(a, f) == getattr(b, f), (a.qname, f)
+
+
+def test_pairwise_ed_cuda_matches_cpu(dev):
+    from sicelore_tpu_torch.core import umicluster
+
+    rng = np.random.default_rng(6)
+    umis = list(dict.fromkeys(
+        [dna.decode(rng.integers(0, 4, int(rng.integers(10, 17)))).encode()
+         for _ in range(200)]
+        + [b"", b"ACGTN" * 7, b"ACGTN" * 6, b"AAAANCCCCGGGG"]))
+    before = editdist.myers_global_pairwise.launches
+    got = umicluster.pairwise_ed(umis, device="cuda")
+    assert editdist.myers_global_pairwise.launches > before
+    np.testing.assert_array_equal(got,
+                                  umicluster.pairwise_ed(umis, device="cpu"))
+    quals = [float(x) for x in rng.integers(20, 24, len(umis))]
+    a = umicluster.cluster_group(umis, quals, device="cuda")
+    b = umicluster.cluster_group(umis, quals, device="cpu")
+    assert [(c.center, c.members) for c in a] == \
+        [(c.center, c.members) for c in b]
