@@ -64,7 +64,8 @@ Phases (one JSON line each, with its seconds):
             barcodes agreeing with the generator's truth.
   pipeline_5p  the same run with `PipelineConfig(chemistry="5p")` over
             131,072 synthetic 5p reads (`synth.make_read_5p`, the same mix):
-            the fused edge kernel, the sweep and the tile scan must have
+            the fused edge kernel (every launch with 5p parameters, by the
+            wrapper's own 5p count), the sweep and the tile scan must have
             launched; the window search, the composed body and every plain
             version not.
             Then the CUDA-vs-CPU byte parity on a 4,096-read subset.
@@ -113,6 +114,26 @@ Phases (one JSON line each, with its seconds):
             carrying it as GE (CHAIN_MIN_SHARE). Then the whole chain on a
             subset of about 1,024 reads on `cuda` and on `cpu`: every file
             byte-identical.
+  run       the workflow through the port's CLI in this process
+            (`python -m sicelore_tpu_torch run -b 2 --nativeAlign
+            --collapse --device cuda`, run_workflow) over the chained
+            phase's genome, refFlat, whitelist (as a file) and reads:
+            scanfastq -> align -> assignumis -> barcodes -> isoformmatrix
+            (with the isobam) -> collapsemodel. Launch counts are zeroed
+            just before and read just after: the edge scan, the sweep, the
+            tile scan, the band kernel and `myers_global_pairwise` on the
+            card must have launched, no plain body, composed edge body or
+            window search. The edge launches made with 5p parameters are
+            counted apart (the kernels line's `launches_run`). Each stage's
+            seconds (from the stage lines `run`
+            prints), align reads/s, the gene matrix's genes and cells and
+            the shares of chain_truth. Then `run ... --consensus` on the
+            parity subset on `cuda` and on `cpu` (the consensus stage runs
+            the host engine, as the reference package's `run` does): every
+            file byte-identical; then the same CUDA run on its own output:
+            all eight stages resume and nothing launches.
+  precompile  `python -m sicelore_tpu_torch precompile` in its own
+            process: exits 0 and prints one warm time for each kernel.
 
 `python3 chip_smoke.py --kernels-only` stops after the `kernels` phase (for
 iterating on a kernel; it prints no ok line).
@@ -201,9 +222,11 @@ No PyTorch call computes any of the five functions: `library_ms` is null.
 """
 from __future__ import annotations
 
+import ast
 import functools
 import json
 import multiprocessing as mp
+import os
 import shutil
 import subprocess
 import sys
@@ -1445,6 +1468,175 @@ def chain_steps(device, fastq_dir, ref, refflat, wl, out, on_step=None):
     return steps, files
 
 
+class _StageClock:
+    """A stdout stand-in that keeps each line `run` prints with the time it
+    was written: the stage lines "[name] running..." / "[name] resume: ..."
+    give each stage's seconds."""
+
+    def __init__(self):
+        self.lines, self._buf = [], ""
+
+    def write(self, s):
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(s)
+
+    def flush(self):
+        pass
+
+
+def run_workflow(device, fastq_dir, ref, refflat, wl_file, out,
+                 consensus=False):
+    """The port's `run` (-b 2 --nativeAlign --collapse, with --consensus if
+    asked; `-b 2` caps the barcode edit distance where the chained phase's
+    library calls take the dynamic table's) on `device`, through its CLI in
+    this process, so that the launch
+    counters are read around it: every count is zeroed just before and read
+    just after. Returns {"rc", "s", "stage_s" {stage: seconds}, "resumed"
+    [stages skipped], "launches" {counter: n > 0; "edgescan_5p": the edge
+    launches made with 5p parameters, a share of "edgescan"}, "printed"
+    [lines],
+    "files" {relative path: bytes} of every file under `out`}."""
+    import contextlib
+
+    from sicelore_tpu_torch import __main__ as cli
+    argv = ["run", "-d", str(fastq_dir), "-r", str(ref), "-a", str(refflat),
+            "-o", str(out), "--whitelist", str(wl_file), "-b", "2",
+            "--nativeAlign", "--collapse", "--device", str(device)]
+    if consensus:
+        argv.append("--consensus")
+    counters = path_counters()
+    for c in counters.values():
+        c.launches = 0
+    counters["edgescan"].launches_5p = 0
+    clock = _StageClock()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(clock):
+        rc = cli.main(argv)
+        if str(device) == "cuda":
+            import torch
+            torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    if counters["edgescan"].launches_5p:
+        launches["edgescan_5p"] = counters["edgescan"].launches_5p
+    stages = [(ts, line[1:line.index("]")], "resume" in line)
+              for ts, line in clock.lines if line.startswith("[")
+              and ("] running" in line or "] resume" in line)]
+    stage_s = {name: (stages[i + 1][0] if i + 1 < len(stages) else end) - ts
+               for i, (ts, name, _) in enumerate(stages)}
+    return {"rc": rc, "s": end - t, "stage_s": stage_s,
+            "resumed": [name for _, name, skip in stages if skip],
+            "launches": launches, "printed": [l for _, l in clock.lines],
+            "files": {str(f.relative_to(out)): f.read_bytes()
+                      for f in sorted(Path(out).rglob("*")) if f.is_file()}}
+
+
+def workflow_phase(device, cdir, ref, refflat, wl, genes, n_sub):
+    """The `run` phase (see the module docstring): the port's `run
+    --nativeAlign --collapse` on `device` over the chained phase's inputs
+    under `cdir` (fq/, sub/ of n_sub reads), checked against the
+    generator's truth (genes); the subset with --consensus on `device` and
+    on cpu, byte for byte; the subset again on its own output, where every
+    stage must resume and nothing launch. Emits the phase's line and
+    raises SystemExit on a failed check; returns (the line, the main
+    run_workflow result)."""
+    from sicelore_tpu_torch.core import umicluster
+    t0 = time.time()
+    ed_calls = []
+    inner_ed = umicluster._pairwise_ed_device
+
+    def record_ed(umis, dev="cuda"):
+        ed_calls.append((str(dev), len(umis)))
+        return inner_ed(umis, dev)
+
+    n_reads = (cdir / "fq" / "reads.fastq").read_bytes().count(b"\n") // 4
+    wl_file = cdir / "wl.txt"
+    wl_file.write_text("".join(w + "\n" for w in wl))
+    umicluster._pairwise_ed_device = record_ed
+    try:
+        wf = run_workflow(device, cdir / "fq", ref, refflat, wl_file,
+                          cdir / "wf")
+    finally:
+        umicluster._pairwise_ed_device = inner_ed
+    n_prim, n_map, n_ge = chain_truth(cdir / "wf" / "passed.sorted.bam",
+                                      cdir / "wf" / "umi.bam", genes)
+    gm = wf["files"]["isomatrix/sicelore_genematrix.txt"].decode(
+        ).splitlines()
+    passed_reads = sum(b.count(b"\n") // 4 for k, b in wf["files"].items()
+                       if k.startswith("readscan/passed/"))
+    wf_res = json.loads(wf["files"]["pipeline_results.json"])
+    run_ph = {
+        "phase": "run", "reads": n_reads, "rc": wf["rc"],
+        "stage_s": {k: round(v, 3) for k, v in wf["stage_s"].items()},
+        "run_s": round(wf["s"], 3), "passed_reads": passed_reads,
+        "align_reads_per_s": round(passed_reads / wf["stage_s"]["minimap2"],
+                                   1),
+        "launches": wf["launches"], "device_ed_calls": len(ed_calls),
+        "device_ed_devices": sorted({d for d, _ in ed_calls}),
+        "aligned_records": wf_res.get("aligned_records"),
+        "matrix_genes": len(gm) - 1,
+        "matrix_cells": len(gm[0].split("\t")) - 1 if gm else 0,
+        "collapse": {k: v for k, v in wf_res.get("collapse", {}).items()
+                     if not isinstance(v, (list, dict))},
+        "primary_records": n_prim,
+        "true_gene_share": n_map / max(n_prim, 1),
+        "ge_share": n_ge / max(n_prim, 1), "files": len(wf["files"])}
+    bad = []
+    ln = wf["launches"]
+    if wf["rc"] != 0:
+        bad.append(f"run exited {wf['rc']}")
+    if min(ln.get(k, 0) for k in ("edgescan", "bcsweep", "tilescan",
+                                  "bandalign")) < 1:
+        bad.append("run did not launch its kernels")
+    if ln.get("myers_global_pairwise", 0) < 1 or \
+            {d for d, _ in ed_calls} != {device}:
+        bad.append("run's assignumis ran no batched distance on the card")
+    plain = {k: v for k, v in ln.items()
+             if k.startswith("plain_") or k in ("edge_composed", "win1")}
+    if plain:
+        bad.append(f"plain bodies ran: {plain}")
+    if (n_prim < 0.95 * passed_reads
+            or run_ph["true_gene_share"] < CHAIN_MIN_SHARE
+            or run_ph["ge_share"] < CHAIN_MIN_SHARE
+            or run_ph["matrix_genes"] < 1 or run_ph["matrix_cells"] < 1):
+        bad.append("run outputs off the generator's truth")
+    # the subset with --consensus: CUDA == CPU bytes in every file; then
+    # the CUDA run again on its own output directory: every stage resumes
+    # and nothing launches
+    sub = {d: run_workflow(d, cdir / "sub", ref, refflat, wl_file,
+                           cdir / f"wf_{d}", consensus=True)
+           for d in (device, "cpu")}
+    diff = sorted(k for k in set(sub[device]["files"])
+                  | set(sub["cpu"]["files"])
+                  if sub[device]["files"].get(k)
+                  != sub["cpu"]["files"].get(k))
+    again = run_workflow(device, cdir / "sub", ref, refflat, wl_file,
+                         cdir / f"wf_{device}", consensus=True)
+    run_ph.update({
+        "parity_reads": n_sub, "parity_files": len(sub[device]["files"]),
+        "parity_differ": diff,
+        "parity_stage_s": {d: {k: round(v, 3) for k, v in
+                               sub[d]["stage_s"].items()} for d in sub},
+        "resume_stages": again["resumed"], "resume_launches":
+            again["launches"], "resume_s": round(again["s"], 3),
+        "s": round(time.time() - t0, 2)})
+    emit(run_ph)
+    if diff or len(sub[device]["files"]) < 30 or sub[device]["rc"] or \
+            sub["cpu"]["rc"]:
+        bad.append(f"cuda/cpu run outputs differ: {diff}")
+    if again["rc"] or again["launches"] or \
+            again["resumed"] != list(sub[device]["stage_s"]) or \
+            len(again["resumed"]) != 8:
+        bad.append(f"resume ran stages {again['stage_s']} or launched "
+                   f"{again['launches']}")
+    if bad:
+        raise SystemExit(f"run: {bad}")
+    return run_ph, wf
+
+
 def gap_pairs(rng, Lc, n):
     """(R, Q) pairs of the aligner's Lc bucket: R of Lc/2 + 1 .. Lc bases
     (1 .. 64 at Lc 64), Q a copy at 5% noise whose length differs from R's
@@ -2001,8 +2193,14 @@ def _run(pool, wl, cells, work, dev) -> int:
                 eg.edge_scan2_plain, bcsearch.bc_sweep_plain,
                 ts.tile_scan_plain, editdist.myers_win1_plain)
 
+    def zero_counts():
+        for c in counters:
+            c.launches = 0
+        edge_scan2.launches_5p = 0
+
     def read_counts():
         return ({"edgescan": edge_scan2.launches,
+                 "edgescan_5p": edge_scan2.launches_5p,
                  "bcsweep": bcsearch.bc_sweep.launches,
                  "tilescan": ts.tile_scan.launches,
                  "win1": editdist.myers_win1.launches,
@@ -2015,8 +2213,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     t0 = time.time()
     pipe = ScanFastqPipeline(cfg, whitelist=wl, chunk_size=READS_PER_FILE,
                              user_max_ed=2, cache_pass1=True, device="cuda")
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     t_run = time.time()
     stats = pipe.run([work / "run"], work / "out_cuda")
     torch.cuda.synchronize()
@@ -2030,7 +2227,7 @@ def _run(pool, wl, cells, work, dev) -> int:
           "s": round(time.time() - t0, 2)})
     if (min(launches[k] for k in ("edgescan", "bcsweep", "tilescan")) < 1
             or launches["win1"] or launches["edge_composed"]
-            or any(plain.values())):
+            or launches["edgescan_5p"] or any(plain.values())):
         raise SystemExit(f"main path launches {launches}, plain {plain}")
     if (stats.total_reads != total or stats.stranded < 0.8 * total
             or stats.bc_assigned < 0.6 * total
@@ -2057,8 +2254,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     t0 = time.time()
     pipe5 = ScanFastqPipeline(cfg5, whitelist=wl, chunk_size=READS_PER_FILE,
                               user_max_ed=2, cache_pass1=True, device="cuda")
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     t_run = time.time()
     stats5 = pipe5.run([work / "run5p"], work / "out5p_cuda")
     torch.cuda.synchronize()
@@ -2072,6 +2268,7 @@ def _run(pool, wl, cells, work, dev) -> int:
           "plain_launches": plain5, "s": round(time.time() - t0, 2)})
     if (min(launches5[k] for k in ("edgescan", "bcsweep", "tilescan")) < 1
             or launches5["win1"] or launches5["edge_composed"]
+            or launches5["edgescan_5p"] != launches5["edgescan"]
             or any(plain5.values())):
         raise SystemExit(f"5p path launches {launches5}, plain {plain5}")
     if (stats5.total_reads != total or stats5.stranded < 0.8 * total
@@ -2104,8 +2301,7 @@ def _run(pool, wl, cells, work, dev) -> int:
                                  device=d)
 
     pipe_c = control("cuda", READS_PER_FILE)
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     t_run = time.time()
     stats_c = pipe_c.run([work / "run" / "reads0.fastq"],
                          work / "control_cuda")
@@ -2161,8 +2357,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     t0 = time.time()
     other = [w for w in synth.make_whitelist(
         np.random.default_rng(SEED + 400), 64) if w not in set(wl)]
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     n_files, pipe_e, _ = cuda_cpu_outputs(
         lambda d: ScanFastqPipeline(cfg, whitelist=other, chunk_size=1024,
                                     user_max_ed=2, device=d),
@@ -2437,6 +2632,29 @@ def _run(pool, wl, cells, work, dev) -> int:
         raise SystemExit(f"steps_1_to_4b: {bad}")
     launches["bandalign_align"] = al["launches"]["bandalign"]
 
+    # ---- run: the workflow through the port's CLI on the chained
+    # phase's genome, refFlat, whitelist and reads ----
+    run_ph, wf = workflow_phase("cuda", cdir, ref, refflat, cwl, genes,
+                                n_sub)
+
+    # ---- precompile: the warm-up command in its own process ----
+    t0 = time.time()
+    pre = subprocess.run(
+        [sys.executable, "-m", "sicelore_tpu_torch", "precompile"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    done = [l for l in pre.stdout.splitlines()
+            if l.startswith("precompile done: ")]
+    pre_ms = ast.literal_eval(done[-1][len("precompile done: "):]) \
+        if done else {}
+    emit({"phase": "precompile", "rc": pre.returncode, "ms": pre_ms,
+          "log": pre.stderr.splitlines()[-30:],
+          "s": round(time.time() - t0, 2)})
+    if pre.returncode or sorted(pre_ms) != sorted(
+            ("edgescan", "bcsweep", "tilescan", "win1", "bandalign")) or \
+            min(pre_ms.values()) <= 0:
+        raise SystemExit(f"precompile: rc {pre.returncode}, {pre_ms}")
+
     src = {"edgescan": ("sicelore_tpu_torch/csrc/edgescan.cu",
                         "sicelore_tpu/ops/edgescan_tpu.py:87", "edgescan"),
            "edgescan_5p": ("sicelore_tpu_torch/csrc/edgescan.cu",
@@ -2452,7 +2670,7 @@ def _run(pool, wl, cells, work, dev) -> int:
                          "bandalign_512_32"),
            "win1": ("sicelore_tpu_torch/csrc/win1.cu",
                     "sicelore_tpu/ops/editdist.py:265", "win1")}
-    launches["edgescan_5p"] = launches5["edgescan"]
+    launches["edgescan_5p"] = launches5["edgescan_5p"]
     # the window search runs on the control path (the 3p and 5p runs take
     # the fused edge kernel): the control run's count
     launches["win1"] = launches_c["win1"]
@@ -2464,6 +2682,10 @@ def _run(pool, wl, cells, work, dev) -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": None}
+        # launches in the run phase's `run`; the edge wrapper counts its 5p
+        # launches apart, as a share of all of them
+        entry["launches_run"] = wf["launches"].get(name, 0) - (
+            wf["launches"].get("edgescan_5p", 0) if name == "edgescan" else 0)
         if name in ("edgescan", "edgescan_5p"):
             entry.update({"device_ms": r["device_ms"],
                           "burst_ms": r["burst_ms"], "reads": r["reads"],
@@ -2579,6 +2801,8 @@ def _run(pool, wl, cells, work, dev) -> int:
                       "assignumis_records_per_s":
                           chain["assignumis_records_per_s"],
                       "chain_step_s": chain["step_s"],
+                      "run_stage_s": run_ph["stage_s"],
+                      "run_align_reads_per_s": run_ph["align_reads_per_s"],
                       "chain_split_s": chain["split_s"],
                       "myers_global_pairwise_ms": {
                           k: v["ms"] for k, v in

@@ -75,7 +75,10 @@ def edge_scan2(codes: torch.Tensor, lens: torch.Tensor,
                     prm.ctypes.data, B, prm.size,
                     _build.stream_handle(codes.device)), "edgescan")
     edge_scan2.launches += 1
+    edge_scan2.launches_5p += bool(p.is5p)
     return out
 
 
 edge_scan2.launches = 0
+# the share of `launches` made with 5p parameters
+edge_scan2.launches_5p = 0

@@ -153,15 +153,19 @@ def _subparsers(adders):
                                  "computeconsensus"])
 def test_cli_options_match_jax(cmd):
     """Each port command has the JAX command's option strings and defaults,
-    plus --device (default cuda)."""
+    plus --device (default cuda) where it reaches the card; the host-only
+    parseillumina and samview take no --device."""
     j = _subparsers([j_main._add_scanfastq, j_main._add_assignumis,
                      j_main._add_computeconsensus,
                      j_main._add_simple_programs])[cmd]
     t = _subparsers([t_main._add_scanfastq, t_main._add_computeconsensus,
                      t_main._add_align, t_main._add_assignumis,
-                     t_main._add_host_commands])[cmd]
+                     t_main._add_simple_programs])[cmd]
     jo, to = _options(j), _options(t)
-    assert to.pop("--device") == "cuda"
+    if cmd in ("parseillumina", "samview"):
+        assert "--device" not in to
+    else:
+        assert to.pop("--device") == "cuda"
     assert to == jo
     pos = [a.dest for a in t._actions if not a.option_strings]
     assert pos == [a.dest for a in j._actions if not a.option_strings]

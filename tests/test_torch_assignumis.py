@@ -237,12 +237,13 @@ def test_parseillumina_table_identical(inputs, tmp_path):
 
 
 def test_cli_assignumis_and_parseillumina_cpu(inputs, tmp_path):
-    """The CLI on --device cpu writes what the library writes."""
+    """The CLI (assignumis on --device cpu; parseillumina, host-only, takes
+    no --device) writes what the library writes."""
     bam, rf, ill = inputs
     env = dict(os.environ, PYTHONPATH=str(REPO))
     run = [sys.executable, "-m", "sicelore_tpu_torch"]
     r = subprocess.run(run + ["parseillumina", "-I", str(ill), "-O",
-                              str(tmp_path / "t.json.gz"), "--device", "cpu"],
+                              str(tmp_path / "t.json.gz")],
                        capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr
     r = subprocess.run(run + ["assignumis", "-i", str(bam), "-o",

@@ -7,41 +7,60 @@ import numpy as np
 import pytest
 
 from sicelore_tpu.align import chain as j_chain
+from sicelore_tpu.core import collapse as j_collapse
 from sicelore_tpu.align import index as j_index
 from sicelore_tpu.core import genetag as j_genetag
 from sicelore_tpu.core import longread as j_longread
 from sicelore_tpu.core import molecule as j_molecule
 from sicelore_tpu.io import bam as j_bam
+from sicelore_tpu.io import bed as j_bed
 from sicelore_tpu.io import bgzf as j_bgzf
 from sicelore_tpu.io import fastq as j_fastq
 from sicelore_tpu.io import native as j_native
 from sicelore_tpu.io import sam as j_sam
 from sicelore_tpu.ops import poa as j_poa
+from sicelore_tpu.pipeline import annotate as j_annotate
+from sicelore_tpu.pipeline import collapsemodel as j_collapsemodel
 from sicelore_tpu.pipeline import illumina as j_illumina
+from sicelore_tpu.pipeline import isoform as j_isoform
+from sicelore_tpu.pipeline import mergestats as j_mergestats
 from sicelore_tpu.pipeline import programs as j_programs
+from sicelore_tpu.pipeline import programs2 as j_programs2
+from sicelore_tpu.pipeline import qc as j_qc
 from sicelore_tpu.pipeline import readname as j_readname
+from sicelore_tpu.pipeline import snp_fusion as j_snp_fusion
 from sicelore_tpu.report import html as j_html
 from sicelore_tpu.utils import config as j_config
 from sicelore_tpu.utils import dna as j_dna
 from sicelore_tpu.utils import synth as j_synth
 from sicelore_tpu_torch.align import chain as t_chain
+from sicelore_tpu_torch.core import collapse as t_collapse
 from sicelore_tpu_torch.align import index as t_index
 from sicelore_tpu_torch.core import genetag as t_genetag
 from sicelore_tpu_torch.core import longread as t_longread
 from sicelore_tpu_torch.core import molecule as t_molecule
 from sicelore_tpu_torch.io import bam as t_bam
+from sicelore_tpu_torch.io import bed as t_bed
 from sicelore_tpu_torch.io import bgzf as t_bgzf
 from sicelore_tpu_torch.io import fastq as t_fastq
 from sicelore_tpu_torch.io import native as t_native
 from sicelore_tpu_torch.io import sam as t_sam
 from sicelore_tpu_torch.ops import poa as t_poa
+from sicelore_tpu_torch.pipeline import annotate as t_annotate
+from sicelore_tpu_torch.pipeline import collapsemodel as t_collapsemodel
 from sicelore_tpu_torch.pipeline import illumina as t_illumina
+from sicelore_tpu_torch.pipeline import isoform as t_isoform
+from sicelore_tpu_torch.pipeline import mergestats as t_mergestats
 from sicelore_tpu_torch.pipeline import programs as t_programs
+from sicelore_tpu_torch.pipeline import programs2 as t_programs2
+from sicelore_tpu_torch.pipeline import qc as t_qc
 from sicelore_tpu_torch.pipeline import readname as t_readname
+from sicelore_tpu_torch.pipeline import snp_fusion as t_snp_fusion
 from sicelore_tpu_torch.report import html as t_html
 from sicelore_tpu_torch.utils import config as t_config
 from sicelore_tpu_torch.utils import dna as t_dna
 from sicelore_tpu_torch.utils import synth as t_synth
+from test_torch_cli import host_inputs
 
 
 def _seqs(seed, n=20):
@@ -378,6 +397,203 @@ def _check_programs(tmp_path):
         (tmp_path / "j.bam").read_bytes()
 
 
+
+# -- the copies of the host programs: inputs from a small run of the port
+# (tests/test_torch_cli.py's host_inputs) --
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    return host_inputs(tmp_path_factory.mktemp("host"))
+
+
+class Out(str):
+    """An output name, made a path under each package's own directory."""
+
+
+def _tree(d):
+    return {str(f.relative_to(d)): f.read_bytes()
+            for f in sorted(d.rglob("*")) if f.is_file()}
+
+
+def _same(tmp_path, tag, fn_t, fn_j, *args, **kw):
+    """fn_t and fn_j on the same inputs, each writing its outputs (the Out
+    arguments) under a directory of its own: the same return value and the
+    same files, which must not be none unless the function writes none."""
+    got = {}
+    for side, fn in (("t", fn_t), ("j", fn_j)):
+        d = tmp_path / tag / side
+        d.mkdir(parents=True)
+
+        def place(x, d=d):
+            return d / x if isinstance(x, Out) else x
+        res = fn(*[place(a) for a in args],
+                 **{k: place(v) for k, v in kw.items()})
+        got[side] = (res, _tree(d))
+    assert got["t"] == got["j"], tag
+    return got["t"]
+
+
+def _check_bed(host):
+    ta, ja = t_bed.BedModel.load(host["cage"]), j_bed.BedModel.load(
+        host["cage"])
+    tb, jb = t_bed.BedModel.load(host["polya"]), j_bed.BedModel.load(
+        host["polya"])
+    assert (ta.entries, tb.entries) == (ja.entries, jb.entries) != (0, 0)
+    rng = np.random.default_rng(21)
+    for _ in range(300):
+        q = (("chr1", "chr2", "chr9")[int(rng.integers(0, 3))],
+             "+-"[int(rng.integers(0, 2))], int(rng.integers(0, 240_000)))
+        assert ta.distance(*q) == ja.distance(*q)
+        assert tb.distance(*q) == jb.distance(*q)
+
+
+def _check_collapse(host, tmp_path):
+    """CollapsedModel step by step: collapse, initialize, filter, classify,
+    validate against the CAGE and polyA BEDs and the short-read BAM,
+    statistics, export."""
+    from sicelore_tpu.core.matrix import load_cell_list
+    from sicelore_tpu.core.refflat import RefFlatModel as JModel
+    from sicelore_tpu_torch.core.refflat import RefFlatModel as TModel
+
+    def run(mod, bed, refmodel, out):
+        m = mod.CollapsedModel(refmodel.load(host["refflat"]), delta=2,
+                               min_evidence=1, rn_min=1)
+        m.load_isobam(host["isobam"], set(load_cell_list(host["cells"])))
+        m.collapse()
+        m.initialize()
+        m.filter()
+        m.classify()
+        m.validate(bed.BedModel.load(host["cage"]),
+                   bed.BedModel.load(host["polya"]), host["sorted"], 40, 40,
+                   1)
+        m.export(out, "cm")
+        return m.statistics()
+    stats, files = _same(tmp_path, "collapse",
+                         lambda out: run(t_collapse, t_bed, TModel, out),
+                         lambda out: run(j_collapse, j_bed, JModel, out),
+                         Out("o"))
+    assert stats["isoforms"] > 0 and len(files) >= 4
+
+
+def _check_isoform(host, tmp_path):
+    for tag, kw in (("iso", {"isobam": True}),
+                    ("iso_opts", {"delta": 5, "ambiguous_assign": True,
+                                  "mapqv0": True, "tobulk": True,
+                                  "prefix": "p"})):
+        log, files = _same(tmp_path, tag, t_isoform.isoform_matrix,
+                           j_isoform.isoform_matrix, host["umi"],
+                           host["refflat"], host["cells"], Out("o"), **kw)
+        assert log["molecules"] > 0 and len(files) >= 8
+
+
+def _check_collapsemodel(host, tmp_path):
+    stats, files = _same(
+        tmp_path, "cm", t_collapsemodel.collapse_model,
+        j_collapsemodel.collapse_model, host["isobam"], host["refflat"],
+        host["cells"], Out("o"), min_evidence=1, cage_bed=host["cage"],
+        polya_bed=host["polya"], short_bam=host["sorted"])
+    assert stats["isoforms"] > 0 and len(files) == 6
+
+
+def _check_snp_fusion(host, tmp_path):
+    assert t_snp_fusion.parse_snp_descriptors(host["snp"]) == \
+        j_snp_fusion.parse_snp_descriptors(host["snp"])
+    cigar = [("S", 5), ("M", 40), ("D", 3), ("M", 10), ("N", 200),
+             ("I", 2), ("M", 30)]
+    for ref_pos in range(95, 400, 3):
+        assert t_snp_fusion.read_pos_at_ref(cigar, 100, ref_pos) == \
+            j_snp_fusion.read_pos_at_ref(cigar, 100, ref_pos)
+    r, _ = _same(tmp_path, "snp", t_snp_fusion.snp_matrix,
+                 j_snp_fusion.snp_matrix, host["umi"], host["snp"],
+                 host["cells"], Out("o"), "s", 1, 5)
+    assert r["hits"] > 0
+    r, _ = _same(tmp_path, "fus", t_snp_fusion.fusion_detector,
+                 j_snp_fusion.fusion_detector, host["fusion"], host["cells"],
+                 Out("o"), min_report=1)
+    assert r["fusions"] > 0 and r["reported"]
+
+
+def _check_annotate(host, tmp_path):
+    cases = (
+        ("model", "annotate_model", (host["model"], host["sorted"],
+                                     host["cage"], host["polya"],
+                                     Out("a.txt"))),
+        ("junc", "junction_validator", (host["junctions"], host["refflat"],
+                                        Out("j.tsv"), host["sorted"])),
+        ("snp3p", "snp_matrix_3pend", (host["isobam"], host["snp"],
+                                       host["refflat"], Out("s.tsv"))),
+        ("isobam", "isobam", (host["umi"], host["molinfos"],
+                              Out("i.bam"))),
+        ("isobam_def", "isobam", (host["umi"], host["molinfos"],
+                                  Out("i.bam"), False)),
+        ("addisobam", "add_isobam", (host["umi"], host["refflat"],
+                                     Out("a.bam"))))
+    for tag, name, args in cases:
+        r, files = _same(tmp_path, tag, getattr(t_annotate, name),
+                         getattr(j_annotate, name), *args)
+        assert files and r, tag
+
+
+def _check_programs2(host, tmp_path):
+    h = host
+    cases = (
+        ("select_valid_cell_barcode", (h["assigned"], Out("c.csv"), 2,
+                                       0.5)),
+        ("filter_bam_mf", (h["umi"], Out("o.bam"), h["cells"])),
+        ("filter_molecule_bam", (h["named"], Out("o.bam"), 2)),
+        ("filter_molecule_bam", (h["isobam"], Out("o.bam"), 1, True)),
+        ("add_label_to_barcode", (h["umi"], Out("o.bam"), "LAB")),
+        ("clean_usuq", (h["us"], Out("o.bam"))),
+        ("split_bam", (h["umi"], Out("o"), h["ids"])),
+        ("split_bam_per_cluster", (h["umi"], Out("o"), h["clusters"])),
+        ("split_bam_per_stage", (h["stage"], Out("o"), h["stages"])),
+        ("molecule_counter", (h["umi"],)),
+        ("export_umifound_records", (h["umi"], Out("o.bam"))),
+        ("export_molecule_reads", (h["us"], h["mols"], Out("o.fastq"))),
+        ("export_metrics", (h["umi"], h["cells"], Out("m.txt"),
+                            Out("c.txt"), "BC", "U8", "GE")),
+        ("add_reads_to_molecules", (h["umi"], h["targeted"],
+                                    Out("o.bam"))),
+        ("haplotype_caller", (h["isobam"], Out("o"))),
+        ("junction_annotate", (h["refflat"], h["genome"], Out("j.tsv"))),
+        ("crispr_stats", (h["umi"], Out("h.txt"), Out("d.txt"), 1,
+                          h["coord"])),
+        ("parse_fastq_cdna", (h["passed"], Out("o"), 10, 5)),
+        ("parse_tr_stats", (h["parse"], h["parse_csv"], Out("o"))))
+    for i, (name, args) in enumerate(cases):
+        r, files = _same(tmp_path, f"{i}_{name}", getattr(t_programs2, name),
+                         getattr(j_programs2, name), *args)
+        assert r, name
+
+
+def _check_qc(host, tmp_path):
+    h = host
+    cases = [("histo", (k, h[src], Out("o"))) for k, src in (
+        ("readlength", "passed_fq"), ("fastqmeanqv", "passed_fq"),
+        ("readlength", "umi"), ("fastqmeanqv", "umi"), ("clipping", "umi"),
+        ("moleculelength", "sorted"), ("percentidentity", "sorted"),
+        ("umidepth", "named"))]
+    cases += [("saturation_curve", (h["named"], Out("o"))),
+              ("read_bam_stats", (h["umi"], Out("s.json"))),
+              ("read_bam_stats", (h["sorted"],)),
+              ("export_edit_distances", (h["umi"], Out("e.tsv"))),
+              ("bulk2fake_single_cell", (h["passed_fq"], Out("o.fastq")))]
+    for i, (name, args) in enumerate(cases):
+        r, _ = _same(tmp_path, f"{i}_{name}", getattr(t_qc, name),
+                     getattr(j_qc, name), *args)
+        assert r, name
+
+
+def _check_mergestats(host, tmp_path):
+    _same(tmp_path, "json", t_mergestats.merge_scanner_stats,
+          j_mergestats.merge_scanner_stats, [host["stats"], host["stats2"]],
+          Out("s.json"))
+    r, _ = _same(tmp_path, "tsv", t_mergestats.merge_barcodes_assigned,
+                 j_mergestats.merge_barcodes_assigned,
+                 [host["assigned"], host["assigned2"]], Out("a.tsv"))
+    assert r["barcodes"] > 0
+
 CHECKS = {
     "dna": _check_dna, "config": _check_config, "synth": _check_synth,
     "readname": _check_readname, "fastq": _check_fastq, "bam": _check_bam,
@@ -391,14 +607,20 @@ CHECKS = {
                                                     native=False),
     "genetag": _check_genetag, "sam": _check_sam,
     "illumina": _check_illumina, "programs": _check_programs,
+    "bed": _check_bed, "collapse": _check_collapse,
+    "isoform": _check_isoform, "collapsemodel": _check_collapsemodel,
+    "snp_fusion": _check_snp_fusion, "annotate": _check_annotate,
+    "programs2": _check_programs2, "qc": _check_qc,
+    "mergestats": _check_mergestats,
 }
 
 
 @pytest.mark.parametrize("module", sorted(CHECKS))
-def test_copy_matches_original(module, tmp_path, monkeypatch):
+def test_copy_matches_original(module, tmp_path, monkeypatch, request):
     import inspect
 
     fn = CHECKS[module]
     args = {"tmp_path": tmp_path, "monkeypatch": monkeypatch}
-    fn(**{n: args[n] for n, p in inspect.signature(fn).parameters.items()
+    fn(**{n: args[n] if n in args else request.getfixturevalue(n)
+          for n, p in inspect.signature(fn).parameters.items()
           if p.default is p.empty})
