@@ -96,6 +96,28 @@ Phases (one JSON line each, with its seconds):
             each stage) gives the split of the phase's time.
   consensus_parity  the same consensus on a 2,048-molecule subset on `cuda`
             and on `cpu`: output fastq and stats byte-identical.
+  mesh      the `pipeline` phase's run (131,072 3p reads, cached pass 1)
+            with `ScanFastqPipeline(mesh=...)` and the `consensus` phase's
+            BAM with `BatchedConsensusEngine(mesh=...)`: two shards on
+            cuda:0 on a one-card machine (they share its stream: right, but
+            serial), one a card where more are visible. Every output file
+            must equal those phases' bytes. Launch counts are zeroed just
+            before each run and read just after, and `ShardLaunches`
+            attributes them to shards: the edge scan, the sweep and the
+            tile scan (scan) and the band kernel (consensus) must have
+            launched on every shard, no plain body, window search or
+            composed edge body anywhere. Reads/s and UMIs/s beside the
+            single-device rates.
+  multiprocess  the same scan in two processes joined by a gloo group
+            (`parallel.multihost`) on the card, each started as `python -c
+            MP_RANK` with a timeout and scanning files[rank::2] of the same
+            4 files: the union of their passed/ and failed/ files and
+            BarcodeList.tsv equal the `pipeline` phase's bytes, the merged
+            scanner_stats.json its stats, and BarcodesAssigned.tsv its rows
+            with tied barcodes in used-list order (the JAX merge's order);
+            each rank must launch the three scan kernels and no plain body,
+            and no edge scan with 5p parameters (counted apart, as in
+            `run`).
   steps_1_to_4b  Steps 1 -> 2 -> 3 -> 4b chained on `cuda` (chain_steps):
             scanfastq -> align (the spliced aligner; its gap extension
             runs the band kernel) -> assignumis with the refFlat (UMI
@@ -111,9 +133,9 @@ Phases (one JSON line each, with its seconds):
             split of both (timers around the methods, a device sync around
             the device parts), which native host codecs the aligner took,
             and the shares of primary records inside their true gene and
-            carrying it as GE (CHAIN_MIN_SHARE). Then the whole chain on a
-            subset of about 1,024 reads on `cuda` and on `cpu`: every file
-            byte-identical.
+            carrying it as GE (CHAIN_MIN_SHARE). Its CUDA == CPU parity on a
+            subset of about 1,024 reads is split: the `run` phase's subset
+            run covers Steps 1-3, and `steps_4b_parity` Step 4b.
   run       the workflow through the port's CLI in this process
             (`python -m sicelore_tpu_torch run -b 2 --nativeAlign
             --collapse --device cuda`, run_workflow) over the chained
@@ -132,6 +154,9 @@ Phases (one JSON line each, with its seconds):
             the host engine, as the reference package's `run` does): every
             file byte-identical; then the same CUDA run on its own output:
             all eight stages resume and nothing launches.
+  steps_4b_parity  tagbamwithread and computeconsensus (the device engine)
+            on each device's subset run of the `run` phase: umi_us.bam,
+            consensus.fastq and its log byte-identical.
   precompile  `python -m sicelore_tpu_torch precompile` in its own
             process: exits 0 and prints one warm time for each kernel.
 
@@ -232,6 +257,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -1415,6 +1441,140 @@ def path_counters():
             "plain_consensus_votes": poa_cuda.consensus_votes_plain}
 
 
+class ShardLaunches:
+    """Launches of each kernel (and plain body) made by each shard of a
+    mesh: `parallel.shard.map_shards` is wrapped so that every shard's call
+    is bracketed by a read of the launch counters (`path_counters`). Used
+    as a context manager; `per_shard` is a list of {counter: n > 0}, one a
+    shard index."""
+
+    def __init__(self):
+        self.per_shard: list[dict] = []
+
+    def __enter__(self):
+        from sicelore_tpu_torch.parallel import shard
+        counters = path_counters()
+        inner = self._inner = shard.map_shards
+        per_shard = self.per_shard
+
+        def counted(devices, spans, fn):
+            shard_of = iter(range(len(spans)))
+
+            def call(dev, *span):
+                i = next(shard_of)
+                before = {k: c.launches for k, c in counters.items()}
+                out = fn(dev, *span)
+                while len(per_shard) <= i:
+                    per_shard.append({})
+                for k, c in counters.items():
+                    if c.launches > before[k]:
+                        per_shard[i][k] = (per_shard[i].get(k, 0)
+                                           + c.launches - before[k])
+                return out
+            return inner(devices, spans, call)
+
+        shard.map_shards = counted
+        return self
+
+    def __exit__(self, *exc):
+        from sicelore_tpu_torch.parallel import shard
+        shard.map_shards = self._inner
+        return False
+
+
+MP_RANK = """
+import datetime, json, sys, time
+from pathlib import Path
+sys.path.insert(0, {root!r})
+import torch
+from sicelore_tpu_torch.parallel import multihost
+multihost.init({coord!r}, {n}, {pid}, timeout=datetime.timedelta(seconds=300))
+from chip_smoke import path_counters
+from sicelore_tpu_torch.pipeline.scanfastq import ScanFastqPipeline
+from sicelore_tpu_torch.utils.config import PipelineConfig
+wl = json.loads(Path({wl!r}).read_text())
+pipe = ScanFastqPipeline(PipelineConfig(), whitelist=wl,
+                         chunk_size={chunk}, user_max_ed=2, cache_pass1=True,
+                         device="cuda")
+counters = path_counters()
+for c in counters.values():
+    c.launches = 0
+counters["edgescan"].launches_5p = 0
+t = time.perf_counter()
+stats = pipe.run([{inp!r}], {out!r})
+torch.cuda.synchronize()
+run_s = time.perf_counter() - t
+launches = {{k: c.launches for k, c in counters.items() if c.launches}}
+launches["edgescan_5p"] = counters["edgescan"].launches_5p
+Path({out!r}, "rank{pid}.json").write_text(json.dumps({{
+    "rank": multihost.process_index(), "world": multihost.process_count(),
+    "run_s": run_s, "stats": stats.to_json(), "used": pipe.used_strs,
+    "launches": launches, "jax": "jax" in sys.modules}}))
+"""
+
+
+def multiprocess_run(inp, out, wl, n=2, timeout=600):
+    """`ScanFastqPipeline.run` over `inp` in n processes joined by a gloo
+    group (`parallel.multihost`), all on the first card, each started as
+    `python -c MP_RANK` with a timeout. Returns ([each rank's record],
+    wall seconds from the first start to the last exit); raises
+    SystemExit when a rank fails."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        coord = f"localhost:{sk.getsockname()[1]}"
+    out.mkdir(parents=True)
+    wl_file = out.parent / f"{out.name}_wl.json"
+    wl_file.write_text(json.dumps(list(wl)))
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MP_RANK.format(
+            root=str(ROOT), coord=coord, n=n, pid=pid, wl=str(wl_file),
+            chunk=READS_PER_FILE, inp=str(inp), out=str(out))],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for pid in range(n)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t
+    bad = [f"rank {i} exited {p.returncode}: "
+           f"{o[1].decode(errors='replace')[-1500:]}"
+           for i, (p, o) in enumerate(zip(procs, outs)) if p.returncode]
+    if bad:
+        raise SystemExit(f"multiprocess: {bad}")
+    ranks = [json.loads((out / f"rank{i}.json").read_text())
+             for i in range(n)]
+    for i in range(n):
+        (out / f"rank{i}.json").unlink()
+    return ranks, wall
+
+
+def output_files(out, skip=("ReadScanner.html",)) -> dict:
+    """{relative path: bytes} of every file under out but those named in
+    skip."""
+    return {str(f.relative_to(out)): f.read_bytes()
+            for f in sorted(Path(out).rglob("*"))
+            if f.is_file() and f.name not in skip}
+
+
+def tag_and_consensus(device, wf, out) -> dict:
+    """tagbamwithread and computeconsensus (the device engine on `device`)
+    over a `run` output directory's umi.bam and readscan/passed: the
+    chained phase's Step 4b on the run phase's subset. Returns
+    {file: bytes}."""
+    from sicelore_tpu_torch.pipeline import programs
+    from sicelore_tpu_torch.pipeline.consensus import compute_consensus
+    out.mkdir(parents=True)
+    programs.tag_bam_with_read(wf / "umi.bam", out / "umi_us.bam",
+                               wf / "readscan" / "passed")
+    compute_consensus(out / "umi_us.bam", out / "consensus.fastq",
+                      device=device, log_json=out / "consensus.fastq.log")
+    return output_files(out)
+
+
 def chain_steps(device, fastq_dir, ref, refflat, wl, out, on_step=None):
     """Steps 1 -> 2 -> 3 -> 4b of the port on `device`, each through its
     library entry point: scanfastq, align, assignumis (with the refFlat),
@@ -2475,6 +2635,133 @@ def _run(pool, wl, cells, work, dev) -> int:
     if blobs["cuda"] != blobs["cpu"] or not blobs["cuda"][0]:
         raise SystemExit("cuda/cpu consensus outputs differ")
 
+    # ---- mesh: the 3p scan and the consensus split across a mesh (two
+    # shards on the one card, or one a card where there are more) ----
+    t0 = time.time()
+    from sicelore_tpu_torch.parallel import shard
+    n_cards = torch.cuda.device_count()
+    mesh = ([f"cuda:{i}" for i in range(n_cards)] if n_cards > 1
+            else ["cuda:0", "cuda:0"])
+    with ShardLaunches() as scan_shards:
+        pipe_m = ScanFastqPipeline(cfg, whitelist=wl,
+                                   chunk_size=READS_PER_FILE, user_max_ed=2,
+                                   cache_pass1=True, device="cuda", mesh=mesh)
+        zero_counts()
+        t_run = time.time()
+        stats_m = pipe_m.run([work / "run"], work / "out_mesh")
+        torch.cuda.synchronize()
+        mesh_s = time.time() - t_run
+        launches_m, plain_m = read_counts()
+    with ShardLaunches() as cons_shards:
+        for c in cons_counters:
+            c.launches = 0
+        t_run = time.time()
+        cstats_m = compute_consensus(
+            work / "cons.bam", work / "cons_mesh.fastq",
+            engine=poa_cuda.BatchedConsensusEngine(mesh=mesh),
+            log_json=work / "cons_mesh.fastq.log")
+        torch.cuda.synchronize()
+        cons_mesh_s = time.time() - t_run
+        launches_m["bandalign"] = poa_cuda.band_align.launches
+        plain_m["bandalign"] = (poa_cuda.band_align_plain.launches
+                                + poa_cuda.consensus_votes_plain.launches)
+    mesh_files = output_files(work / "out_mesh", skip=())
+    one_files = output_files(work / "out_cuda", skip=())
+    scan_differ = sorted(k for k in set(mesh_files) | set(one_files)
+                         if mesh_files.get(k) != one_files.get(k))
+    cons_same = all((work / f"cons_mesh{x}").read_bytes()
+                    == (work / f"cons_cuda{x}").read_bytes()
+                    for x in (".fastq", ".fastq.log"))
+    mesh_kernels = ("edgescan", "bcsweep", "tilescan")
+    mesh_ph = {
+        "phase": "mesh", "mesh": mesh, "shards": len(mesh),
+        "cards": n_cards, "reads": stats_m.total_reads,
+        "run_s": round(mesh_s, 3),
+        "reads_per_s": round(total / mesh_s, 1),
+        "single_reads_per_s": round(total / run_s, 1),
+        "files": len(mesh_files), "files_differ": scan_differ,
+        "molecules": cstats_m["molecules"],
+        "consensus_run_s": round(cons_mesh_s, 3),
+        "umis_per_s": round(N_MOLECULES / cons_mesh_s, 1),
+        "single_umis_per_s": round(N_MOLECULES / cons_s, 1),
+        "consensus_identical": cons_same,
+        "launches": launches_m, "plain_launches": plain_m,
+        "scan_launches_per_shard": scan_shards.per_shard,
+        "consensus_launches_per_shard": cons_shards.per_shard,
+        "s": round(time.time() - t0, 2)}
+    emit(mesh_ph)
+    if scan_differ or not cons_same:
+        raise SystemExit(f"mesh outputs differ from one device: scan "
+                         f"{scan_differ}, consensus identical {cons_same}")
+    if (len(scan_shards.per_shard) != len(mesh)
+            or len(cons_shards.per_shard) != len(mesh)
+            or min(sh.get(k, 0) for sh in scan_shards.per_shard
+                   for k in mesh_kernels) < 1
+            or min(sh.get("bandalign", 0)
+                   for sh in cons_shards.per_shard) < 1
+            or launches_m["win1"] or launches_m["edge_composed"]
+            or any(plain_m.values())
+            or any(k.startswith("plain_") for sh in scan_shards.per_shard
+                   + cons_shards.per_shard for k in sh)):
+        raise SystemExit(f"mesh launches {launches_m}, plain {plain_m}, per "
+                         f"shard {scan_shards.per_shard} "
+                         f"{cons_shards.per_shard}")
+
+    # ---- multiprocess: the 3p scan in two processes (gloo) on the card,
+    # each on files[rank::2] ----
+    t0 = time.time()
+    ranks, mp_wall = multiprocess_run(work / "run", work / "out_mp", wl)
+    single = output_files(work / "out_cuda", skip=("ReadScanner.html",
+                                                   "BarcodesAssigned.tsv",
+                                                   "scanner_stats.json"))
+    got = output_files(work / "out_mp", skip=("ReadScanner.html",
+                                              "BarcodesAssigned.tsv",
+                                              "scanner_stats.json"))
+    mp_differ = sorted(k for k in set(single) | set(got)
+                       if single.get(k) != got.get(k))
+    # the merged BarcodesAssigned.tsv holds tied barcodes in used-list
+    # order, as the JAX pipeline's merge does; one process holds them in
+    # the order of their first assignment
+    ba_want = work / "mp_BarcodesAssigned.tsv"
+    ScanFastqPipeline.write_barcodes_assigned(
+        SimpleNamespace(assigned_hist=dict(sorted(pipe.assigned_hist.items())),
+                    used_strs=pipe.used_strs), ba_want)
+    ba_got = (work / "out_mp" / "BarcodesAssigned.tsv").read_bytes()
+    ba_ok = ba_got == ba_want.read_bytes()
+    stats_ok = (json.loads((work / "out_mp" / "scanner_stats.json")
+                           .read_text())
+                == json.loads(json.dumps(stats.to_json()))
+                == ranks[0]["stats"] == ranks[1]["stats"])
+    mp_ph = {
+        "phase": "multiprocess", "processes": len(ranks),
+        "files_per_rank": [sorted(p.name for p in (work / "run").glob(
+            "*.fastq"))[r::len(ranks)] for r in range(len(ranks))],
+        "run_s": [round(r["run_s"], 3) for r in ranks],
+        "wall_s": round(mp_wall, 3),
+        "reads_per_s": round(total / max(r["run_s"] for r in ranks), 1),
+        "single_reads_per_s": round(total / run_s, 1),
+        "files": len(got) + 2, "files_differ": mp_differ,
+        "barcodes_assigned_merge_order": ba_ok,
+        "barcodes_assigned_as_one_process":
+            ba_got == (work / "out_cuda" / "BarcodesAssigned.tsv")
+            .read_bytes(),
+        "stats_merged": stats_ok,
+        "used_lists_equal": all(r["used"] == pipe.used_strs for r in ranks),
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "s": round(time.time() - t0, 2)}
+    emit(mp_ph)
+    if (mp_differ or not ba_ok or not stats_ok
+            or not mp_ph["used_lists_equal"] or any(r["jax"] for r in ranks)
+            or [r["rank"] for r in ranks] != list(range(len(ranks)))):
+        raise SystemExit(f"multiprocess outputs differ: {mp_differ}, "
+                         f"BarcodesAssigned {ba_ok}, stats {stats_ok}")
+    if any(min(r["launches"].get(k, 0) for k in mesh_kernels) < 1
+           or r["launches"]["edgescan_5p"]
+           or any(k.startswith("plain_") or k in ("win1", "edge_composed")
+                  for k in r["launches"]) for r in ranks):
+        raise SystemExit(f"multiprocess launches "
+                         f"{[r['launches'] for r in ranks]}")
+
     # ---- Steps 1 -> 2 -> 3 -> 4b on cuda: fastq to consensus ----
     t0 = time.time()
     from sicelore_tpu_torch.align import aligner as aln_mod
@@ -2616,26 +2903,35 @@ def _run(pool, wl, cells, work, dev) -> int:
             or chain["ge_share"] < CHAIN_MIN_SHARE
             or not 0 < cons["written"] == cons["molecules"]):
         bad.append("outputs off the generator's truth")
-    # CUDA == CPU bytes for every file of the subset's whole chain
-    blobs = {}
-    for d in ("cuda", "cpu"):
-        _, blobs[d] = chain_steps(d, cdir / "sub", ref, refflat, cwl,
-                                  cdir / f"par_{d}")
-    diff = sorted(k for k in set(blobs["cuda"]) | set(blobs["cpu"])
-                  if blobs["cuda"].get(k) != blobs["cpu"].get(k))
-    chain.update({"parity_reads": n_sub, "parity_files": len(blobs["cuda"]),
-                  "parity_differ": diff, "s": round(time.time() - t0, 2)})
+    chain["s"] = round(time.time() - t0, 2)
     emit(chain)
-    if diff or len(blobs["cuda"]) < 12:
-        bad.append(f"cuda/cpu chain outputs differ: {diff}")
     if bad:
         raise SystemExit(f"steps_1_to_4b: {bad}")
     launches["bandalign_align"] = al["launches"]["bandalign"]
 
     # ---- run: the workflow through the port's CLI on the chained
-    # phase's genome, refFlat, whitelist and reads ----
+    # phase's genome, refFlat, whitelist and reads; its subset run on cuda
+    # and on cpu is the CUDA == CPU parity of Steps 1-3 ----
     run_ph, wf = workflow_phase("cuda", cdir, ref, refflat, cwl, genes,
                                 n_sub)
+
+    # the chained phase's parity of Step 4b on that subset: tagbamwithread
+    # and the device engine's computeconsensus on each device's run output
+    t0 = time.time()
+    poa_cuda.band_align.launches = 0
+    blobs = {d: tag_and_consensus(d, cdir / f"wf_{d}", cdir / f"par_{d}")
+             for d in ("cuda", "cpu")}
+    diff = sorted(k for k in set(blobs["cuda"]) | set(blobs["cpu"])
+                  if blobs["cuda"].get(k) != blobs["cpu"].get(k))
+    emit({"phase": "steps_4b_parity", "reads": n_sub,
+          "files": len(blobs["cuda"]), "differ": diff,
+          "consensus_records": blobs["cuda"]["consensus.fastq"].count(b"\n@")
+          + blobs["cuda"]["consensus.fastq"].startswith(b"@"),
+          "bandalign_launches_cuda": poa_cuda.band_align.launches,
+          "s": round(time.time() - t0, 2)})
+    if diff or len(blobs["cuda"]) != 3 or \
+            not blobs["cuda"]["consensus.fastq"]:
+        raise SystemExit(f"cuda/cpu Step 4b outputs differ: {diff}")
 
     # ---- precompile: the warm-up command in its own process ----
     t0 = time.time()
@@ -2686,6 +2982,19 @@ def _run(pool, wl, cells, work, dev) -> int:
         # launches apart, as a share of all of them
         entry["launches_run"] = wf["launches"].get(name, 0) - (
             wf["launches"].get("edgescan_5p", 0) if name == "edgescan" else 0)
+        # the mesh phase (the consensus for the band kernel, the scan for
+        # the rest), each shard's share, and each rank of the
+        # multiprocess phase
+        entry["launches_mesh"] = launches_m.get(name, 0) - (
+            launches_m["edgescan_5p"] if name == "edgescan" else 0)
+        if name in mesh_kernels + ("bandalign",):
+            entry["launches_mesh_per_shard"] = [
+                sh.get(name, 0) for sh in (cons_shards if name == "bandalign"
+                                           else scan_shards).per_shard]
+        entry["launches_multiprocess"] = [
+            rk["launches"].get(name, 0) - (rk["launches"]["edgescan_5p"]
+                                           if name == "edgescan" else 0)
+            for rk in ranks]
         if name in ("edgescan", "edgescan_5p"):
             entry.update({"device_ms": r["device_ms"],
                           "burst_ms": r["burst_ms"], "reads": r["reads"],
@@ -2797,6 +3106,11 @@ def _run(pool, wl, cells, work, dev) -> int:
                       "consensus_umis_per_s": round(N_MOLECULES / cons_s, 1),
                       "consensus_run_s": round(cons_s, 3),
                       "consensus_split_s": cons_split,
+                      "mesh_shards": len(mesh),
+                      "mesh_reads_per_s": mesh_ph["reads_per_s"],
+                      "mesh_umis_per_s": mesh_ph["umis_per_s"],
+                      "multiprocess_reads_per_s": mp_ph["reads_per_s"],
+                      "multiprocess_wall_s": mp_ph["wall_s"],
                       "align_reads_per_s": chain["align_reads_per_s"],
                       "assignumis_records_per_s":
                           chain["assignumis_records_per_s"],

@@ -430,14 +430,21 @@ template <int G>
 int launch(const void* reads, const void* rlens, const void* mids,
            const void* centers, const void* clens, void* aligned, void* ins,
            void* feasible, int P, int M, int Lc, cudaStream_t stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
+  // the SM count of the current device (the wrapper makes the tensors'
+  // device current), queried once a device
+  static int sms_of[64] = {0};
+  int dev = 0;
+  {
     cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (sms_of[dev] == 0) {
+      e = cudaDeviceGetAttribute(&sms_of[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return (int)e;
+    }
   }
+  const int sms = sms_of[dev];
   constexpr int PPW = 32 / G;
   const int nsets = (P + PPW - 1) / PPW;
   const size_t wbytes = 32 * (size_t)Lc;     // masks of one warp's pairs

@@ -25,6 +25,15 @@ TPU's uploads and downloads, not the scan's results.
 `*_async` methods launch on the device's current stream and start the
 device->host copy; the matching `finish_*` waits for it, so the pipeline
 overlaps one chunk's host work with the next chunk's device work.
+
+With a mesh (a list of devices, `parallel.shard`) the five methods that the
+JAX model shards (`scan_pass1_async`, `scan_pass1_full_async`,
+`scan_search_async`, `bc_sweep_async`, `internal_tiles_async`) cut a
+chunk's rows (reads, BC windows or tiles) into one contiguous span a
+shard, run the same body on each shard's device and join the rows in read
+order on the host; the tiles keep their global read index and offset. The
+counterpart of the JAX model's `make_sharded2` and
+`make_internal_tile_sharded_fn`; without a mesh there is one shard.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from sicelore_tpu_torch.ops import edgescan as eg2
 from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
 from sicelore_tpu_torch.ops.tilescan_cuda import (ROW_BYTES, TILE,
                                                   tile_params, tile_scan)
+from sicelore_tpu_torch.parallel import shard
 
 I16_BIG = 32000   # sweep EDs at or above it report not-found (bcsearch.BIG)
 BIG = 10**9
@@ -567,13 +577,31 @@ def _host(h) -> np.ndarray:
     return t.numpy()
 
 
+def _host_rows(handles, i: int = 0) -> np.ndarray:
+    """Output i of each shard (`ReadScanModel._sharded`) on the host, the
+    shards' columns joined in read order."""
+    parts = [_host(h[i]) for h in handles]
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=-1)
+
+
+def _upload(dev, codes: np.ndarray, lens: np.ndarray, a: int, b: int):
+    """Rows [a, b) of encode_two_half's codes and lengths on `dev`."""
+    return (torch.from_numpy(codes[a:b]).to(dev),
+            torch.from_numpy(lens[a:b]).to(dev))
+
+
 class ReadScanModel:
     """Host-side wrapper: owns the pattern bitmasks, the pass bodies and the
-    bound used-barcode list on one device."""
+    bound used-barcode list on one device, or on each device of a mesh."""
 
-    def __init__(self, cfg: PipelineConfig | None = None, device="cuda"):
+    def __init__(self, cfg: PipelineConfig | None = None, device="cuda",
+                 mesh=None):
+        """`mesh`: a list of devices (of `device`'s type) the sharded
+        methods split their rows across; the other methods run on its
+        first device."""
         self.cfg = cfg or PipelineConfig()
-        self.device = resolve(device)
+        self.mesh = None if mesh is None else shard.resolve_mesh(mesh, device)
+        self.device = self.mesh[0] if self.mesh else resolve(device)
         self.is5p = getattr(self.cfg, "chemistry", "3p") == "5p"
         self.peq_ad, self.peq_adc, self.peq_tso = \
             eg2.patterns_from_cfg(self.cfg)
@@ -612,28 +640,51 @@ class ReadScanModel:
             if len(patterns):
                 qt = bcsearch.build_qgram_table(patterns)
             self._qgram_t = torch.from_numpy(qt).to(self.device)
+        # a copy of the list on every other device of the mesh
+        self._list_copies = {
+            dev: (self._peq_bc.to(dev), None if self._qgram_t is None
+                  else self._qgram_t.to(dev))
+            for dev in set(self.mesh or ()) - {self.device}}
         self._search_fn = make_scan_search2_body(self.cfg, mode, radius, K)
         self._sweep_only_fn = make_sweep_only_body(self.cfg, mode, radius, K)
 
-    # -- uploads ---------------------------------------------------------
+    def _used_list(self, dev):
+        """The bound used list on `dev` as the search bodies take it:
+        (peq_bc, nvalid, qgram_t)."""
+        peq, qt = (self._peq_bc, self._qgram_t) if dev == self.device \
+            else self._list_copies[dev]
+        return peq, self._n_valid, qt
 
-    def _upload(self, seqs: list[bytes], quals: list[bytes]):
-        codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
-        codes = torch.from_numpy(codes).to(self.device)
-        lens = torch.from_numpy(true_lens).to(self.device)
-        return codes, lens, qv2, true_lens, qsum
+    # -- shards ----------------------------------------------------------
+
+    def _sharded(self, n: int, body):
+        """body(device, a, b) -> a device tensor, or a tuple of them, for
+        rows [a, b) of n, on each shard that has rows (n == 0: once, on the
+        first); every shard's work is issued, and its outputs' copies to the
+        host started, before any is waited on. -> [(copy handle, ...)] a
+        shard, for `_host_rows`."""
+        devices = self.mesh or [self.device]
+
+        def run(dev, a, b):
+            out = body(dev, a, b)
+            return tuple(_to_host_async(t) for t in
+                         (out if isinstance(out, tuple) else (out,)))
+
+        return shard.map_shards(devices, shard.cuts(n, len(devices)), run)
 
     # -- pass 1 (streaming) ----------------------------------------------
 
     def scan_pass1_async(self, seqs: list[bytes], quals: list[bytes]):
         """Launch the pass-1 scan; force with finish_pass1."""
-        codes, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
-        rows = self._pass1_fn(codes, lens)
-        return _to_host_async(rows), qv2, true_lens, qsum
+        codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
+        hs = self._sharded(len(true_lens), lambda dev, a, b: self._pass1_fn(
+            *_upload(dev, codes, true_lens, a, b)))
+        return hs, qv2, true_lens, qsum
 
     def finish_pass1(self, handle):
-        h, qv2, true_lens, qsum = handle
-        out = finalize_rows_np(_host(h), P1_ROW_NAMES, true_lens, self.cfg)
+        hs, qv2, true_lens, qsum = handle
+        out = finalize_rows_np(_host_rows(hs), P1_ROW_NAMES, true_lens,
+                               self.cfg)
         eg2.compute_qvs2_np(qv2, true_lens, out,
                             self.cfg.barcodes.cell_bc_length, self.is5p,
                             qsum, need_x=False)
@@ -648,32 +699,33 @@ class ReadScanModel:
     def scan_pass1_full_async(self, seqs: list[bytes], quals: list[bytes]):
         """Launch the pass-1 FULL scan (edge rows + BC windows, see
         make_pass1_full_body); force with finish_pass1_full."""
-        codes, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
-        rows, wins = self._pass1_full_fn(codes, lens)
-        return (_to_host_async(rows), _to_host_async(wins), qv2, true_lens,
-                qsum)
+        codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
+        hs = self._sharded(len(true_lens),
+                           lambda dev, a, b: self._pass1_full_fn(
+                               *_upload(dev, codes, true_lens, a, b)))
+        return hs, qv2, true_lens, qsum
 
     def finish_pass1_full(self, handle):
         """-> (out dict with finalized ps/pe/ae/tso/x windows and all three
         QV means, the BC search windows uint8 [bw, B] for the pass-2
         sweep)."""
-        h_rows, h_wins, qv2, true_lens, qsum = handle
-        out = finalize_rows_np(_host(h_rows), P1F_ROW_NAMES, true_lens,
+        hs, qv2, true_lens, qsum = handle
+        out = finalize_rows_np(_host_rows(hs, 0), P1F_ROW_NAMES, true_lens,
                                self.cfg)
         eg2.compute_qvs2_np(qv2, true_lens, out,
                             self.cfg.barcodes.cell_bc_length, self.is5p,
                             qsum)
-        return out, _host(h_wins)
+        return out, _host_rows(hs, 1)
 
     def bc_sweep_async(self, windows_tm: np.ndarray):
         """Launch the whitelist sweep alone on cached pass-1 BC windows
         (uint8 [bw, B]); force with finish_bc_sweep. Requires
         prepare_search."""
-        wins = torch.from_numpy(np.ascontiguousarray(windows_tm)).to(
-            self.device)
-        res = self._sweep_only_fn(wins, self._peq_bc, self._n_valid,
-                                  self._qgram_t)
-        return _to_host_async(res), windows_tm
+        hs = self._sharded(windows_tm.shape[1], lambda dev, a, b:
+                           self._sweep_only_fn(torch.from_numpy(
+                               np.ascontiguousarray(windows_tm[:, a:b])).to(
+                               dev), *self._used_list(dev)))
+        return hs, windows_tm
 
     def _bc_dict(self, rows: dict) -> dict:
         """Search rows -> bc dict {ed, idx, ed2}: ed at or above I16_BIG
@@ -706,8 +758,8 @@ class ReadScanModel:
     def finish_bc_sweep(self, handle):
         """-> bc dict {ed, idx, ed2} with the same not-found/overflow
         semantics as finish_search's fused rows."""
-        h, windows_tm = handle
-        arr = _host(h).astype(np.int64)
+        hs, windows_tm = handle
+        arr = _host_rows(hs).astype(np.int64)
         bc = self._bc_dict(dict(zip(SEARCH_ROW_NAMES, arr)))
         idxs = np.nonzero(arr[3])[0]
         if len(idxs):
@@ -719,15 +771,16 @@ class ReadScanModel:
     def scan_search_async(self, seqs: list[bytes], quals: list[bytes]):
         """Launch the fused edge scan + whitelist sweep; force with
         finish_search. Requires prepare_search."""
-        codes, lens, qv2, true_lens, qsum = self._upload(seqs, quals)
-        rows = self._search_fn(codes, lens, self._peq_bc, self._n_valid,
-                               self._qgram_t)
-        return _to_host_async(rows), qv2, true_lens, qsum, seqs, quals
+        codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
+        hs = self._sharded(len(true_lens), lambda dev, a, b: self._search_fn(
+            *_upload(dev, codes, true_lens, a, b), *self._used_list(dev)))
+        return hs, qv2, true_lens, qsum, seqs, quals
 
     def finish_search(self, handle):
         """Force a scan_search_async result -> (edge dict, best dict)."""
-        h, qv2, true_lens, qsum, seqs, quals = handle
-        out = finalize_rows_np(_host(h), P2_ROW_NAMES, true_lens, self.cfg)
+        hs, qv2, true_lens, qsum, seqs, quals = handle
+        out = finalize_rows_np(_host_rows(hs), P2_ROW_NAMES, true_lens,
+                               self.cfg)
         # pass-2 emit consumes only x_qv (bc/read QV are pass-1 criteria)
         eg2.compute_qvs2_np(qv2, true_lens, out,
                             self.cfg.barcodes.cell_bc_length, self.is5p,
@@ -736,9 +789,10 @@ class ReadScanModel:
         idxs = np.nonzero(out["overflow"])[0]
         if len(idxs):
             # the fused rows carry no BC windows: scan those reads again
-            codes, lens, *_ = self._upload([seqs[i] for i in idxs],
-                                              [quals[i] for i in idxs])
-            _, wins = self._pass1_full_fn(codes, lens)
+            codes, _, lens, _ = eg2.encode_two_half(
+                [seqs[i] for i in idxs], [quals[i] for i in idxs])
+            _, wins = self._pass1_full_fn(
+                *_upload(self.device, codes, lens, 0, len(lens)))
             self._redo_exact(bc, idxs, wins.t().cpu().numpy())
         return out, bc
 
@@ -789,17 +843,17 @@ class ReadScanModel:
         if len(rows) == 0:
             return None
         # torch.tensor copies: the native tiler returns read-only buffers
-        res = tile_scan(torch.tensor(rows, device=self.device),
-                        self._tile_params)
-        return _to_host_async(res), read_idx, g0s
+        hs = self._sharded(len(rows), lambda dev, a, b: tile_scan(
+            torch.tensor(rows[a:b], device=dev), self._tile_params))
+        return hs, read_idx, g0s
 
     def finish_internal_tiles(self, handle):
         """-> (splits {read_idx: [global split pos]} for single-junction
         reads, discard set for multi-junction reads)."""
         if handle is None:
             return {}, set()
-        h, read_idx, g0s = handle
-        arr = _host(h)
+        hs, read_idx, g0s = handle
+        arr = _host_rows(hs)
         n, s0, s1 = arr[0], arr[1], arr[2]
         per_read: dict[int, set] = {}
         for t in np.nonzero(n > 0)[0]:

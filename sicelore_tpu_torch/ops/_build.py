@@ -10,8 +10,9 @@ All sources build in parallel (one nvcc each) at the first kernel call of a
 process. The library name carries a hash of the sources and flags, so an
 edited source rebuilds and a stale library is never loaded. Every C entry
 point takes device pointers and the stream as `void*`, returns
-`cudaGetLastError()` after its launch, and the wrappers raise when it is not
-0 (`check`).
+`cudaGetLastError()` after its launch, and the wrappers call it through
+`launch`, which makes the tensors' device current and raises when the
+result is not 0.
 """
 from __future__ import annotations
 
@@ -122,6 +123,16 @@ def bind(stem: str, fn: str, n_ptr: int, n_int: int):
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def launch(fn, what: str, device, *args) -> None:
+    """Call the C entry `fn` with `args` and the current stream of `device`
+    (a CUDA tensor's device), with `device` the current CUDA device: a kernel
+    goes to the current device whatever stream it is given, so a shard on
+    cuda:1 must not launch from a thread whose current device is cuda:0.
+    Raises when the entry returns a non-zero cudaError."""
+    with torch.cuda.device(device):
+        check(fn(*args, stream_handle(device)), what)
 
 
 def stream_handle(device) -> int:

@@ -82,8 +82,8 @@ def merge_sweep_partials(parts: torch.Tensor) -> torch.Tensor:
     S, _, B = parts.shape
     out = torch.empty((4, B), dtype=torch.int32, device=parts.device)
     fn = _build.bind("bcsweep", "bcsweep_merge_launch", 2, 2)
-    _build.check(fn(parts.data_ptr(), out.data_ptr(), S, B,
-                    _build.stream_handle(parts.device)), "bcsweep merge")
+    _build.launch(fn, "bcsweep merge", parts.device, parts.data_ptr(),
+                  out.data_ptr(), S, B)
     return out
 
 
@@ -144,10 +144,9 @@ def _bc_sweep_sliced(wins_tm: torch.Tensor, peq: torch.Tensor, nvalid: int,
     scratch = (torch.empty((S, 4, B), dtype=torch.int32, device=dev)
                if S > 1 else out)
     fn = _build.bind("bcsweep", "bcsweep_launch", 4, 8)
-    _build.check(fn(wins_tm.data_ptr(), peq.data_ptr(), out.data_ptr(),
-                    scratch.data_ptr(), B, W, N, int(nvalid), m,
-                    int(track_pos), S, L, _build.stream_handle(dev)),
-                 "bcsweep")
+    _build.launch(fn, "bcsweep", dev, wins_tm.data_ptr(), peq.data_ptr(),
+                  out.data_ptr(), scratch.data_ptr(), B, W, N, int(nvalid), m,
+                  int(track_pos), S, L)
     bc_sweep.launches += 1
     return out
 

@@ -71,9 +71,9 @@ def edge_scan2(codes: torch.Tensor, lens: torch.Tensor,
         return out
     prm = kernel_params(p)
     fn = _build.bind("edgescan", "edgescan_launch", 4, 2)
-    _build.check(fn(codes.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                    prm.ctypes.data, B, prm.size,
-                    _build.stream_handle(codes.device)), "edgescan")
+    _build.launch(fn, "edgescan", codes.device, codes.data_ptr(),
+                  lens.data_ptr(), out.data_ptr(), prm.ctypes.data, B,
+                  prm.size)
     edge_scan2.launches += 1
     edge_scan2.launches_5p += bool(p.is5p)
     return out

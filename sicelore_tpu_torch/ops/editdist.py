@@ -137,8 +137,8 @@ def myers_win1(windows: torch.Tensor, peq1: np.ndarray, m: int):
         return out.unbind(0)
     a, c, g, t = peq1[:, 0].view(np.int32).tolist()
     fn = _build.bind("win1", "win1_launch", 2, 7)
-    _build.check(fn(windows.data_ptr(), out.data_ptr(), B, W, m, a, c, g, t,
-                    _build.stream_handle(windows.device)), "win1")
+    _build.launch(fn, "win1", windows.device, windows.data_ptr(),
+                  out.data_ptr(), B, W, m, a, c, g, t)
     myers_win1.launches += 1
     return out.unbind(0)
 

@@ -40,6 +40,7 @@ import torch
 
 from sicelore_tpu_torch import device as _device
 from sicelore_tpu_torch.ops import _build, poa
+from sicelore_tpu_torch.parallel import shard
 from sicelore_tpu_torch.utils import dna
 
 MATCH, MISMATCH, GAP = poa.MATCH, poa.MISMATCH, poa.GAP
@@ -222,11 +223,10 @@ def band_align(reads: torch.Tensor, rlens: torch.Tensor, mids: torch.Tensor,
     if P == 0:
         return aligned, ins, feasible
     fn = _build.bind("bandalign", "bandalign_launch", 8, 4)
-    _build.check(fn(reads.data_ptr(), rlens.data_ptr(), mids.data_ptr(),
-                    centers_mol.data_ptr(), clens_mol.data_ptr(),
-                    aligned.data_ptr(), ins.data_ptr(), feasible.data_ptr(),
-                    P, centers_mol.shape[0], Lc, W,
-                    _build.stream_handle(dev)), "bandalign")
+    _build.launch(fn, "bandalign", dev, reads.data_ptr(), rlens.data_ptr(),
+                  mids.data_ptr(), centers_mol.data_ptr(),
+                  clens_mol.data_ptr(), aligned.data_ptr(), ins.data_ptr(),
+                  feasible.data_ptr(), P, centers_mol.shape[0], Lc, W)
     band_align.launches += 1
     return aligned, ins, feasible
 
@@ -326,13 +326,18 @@ class BatchedConsensusEngine:
     2 -> longest, >= 3 -> MSA consensus)."""
 
     def __init__(self, maxreads: int = 20, band: int = 64,
-                 max_center_len: int = 2048, device="cuda"):
+                 max_center_len: int = 2048, device="cuda", mesh=None):
         """`band` only affects the maxps > 63 route; otherwise the band
-        derives from the center-length bucket (w_for)."""
+        derives from the center-length bucket (w_for). `mesh`: a list of
+        devices (`parallel.shard`): each sub-batch's pairs are split across
+        it at molecule boundaries, and the votes are summed on its first
+        device before the assembly (`parallel.consensus_step`); the results
+        are those of one device."""
         self.band = band
         self.maxreads = maxreads
         self.max_center_len = max_center_len
-        self.device = _device.resolve(device)
+        self.mesh = None if mesh is None else shard.resolve_mesh(mesh, device)
+        self.device = self.mesh[0] if self.mesh else _device.resolve(device)
 
     def __call__(self, molecules: list[list[bytes]], minps: int = 3,
                  maxps: int = 20, refine: bool = False):
@@ -422,13 +427,16 @@ class BatchedConsensusEngine:
         return info, centers, clens, reads, rlens, mol_ids
 
     @staticmethod
-    def _sub_batches(mol_ids, n_mol):
-        """Cut a bucket (pairs ordered by molecule) into runs of about
-        PAIRS_PER_CALL pairs at molecule boundaries: (m0, m1, p0, p1)."""
+    def _sub_batches(mol_ids, n_mol, per_call: int | None = None):
+        """Cut a bucket (pairs ordered by molecule) into runs of at least
+        `per_call` (default PAIRS_PER_CALL) pairs, the last may hold fewer,
+        at molecule boundaries: (m0, m1, p0, p1). Molecules without a pair
+        ride in a run, so the runs cover every molecule."""
+        per_call = per_call or PAIRS_PER_CALL
         first = np.searchsorted(np.asarray(mol_ids), np.arange(n_mol + 1))
         m0 = 0
         while m0 < n_mol:
-            m1 = int(np.searchsorted(first, first[m0] + PAIRS_PER_CALL))
+            m1 = int(np.searchsorted(first, first[m0] + per_call))
             m1 = min(max(m1, m0 + 1), n_mol)
             if int(first[m1]) == len(mol_ids):
                 m1 = n_mol          # trailing molecules without a pair
@@ -437,7 +445,9 @@ class BatchedConsensusEngine:
 
     def _run_batch(self, molecules, results, info, reads, rlens, mol_ids,
                    Lc, W, minps, maxps, bucketed):
-        """One sub-batch: upload, align, vote, assemble, decode."""
+        """One sub-batch: upload, align and vote (on each shard of the
+        mesh, the votes summed), assemble, decode."""
+        from sicelore_tpu_torch.parallel import consensus_step
         dev = self.device
         P, M = len(reads), len(info)
         r_arr = np.full((P, Lc + W), dna.PAD, np.int8)
@@ -446,22 +456,21 @@ class BatchedConsensusEngine:
         c_arr = np.full((M, Lc), dna.PAD, np.int8)
         for m, (_, cseq, _) in enumerate(info):
             c_arr[m, :len(cseq)] = dna.encode(cseq)
-        clm = torch.tensor([len(c) for _, c, _ in info], dtype=torch.int32,
-                           device=dev)
-        mids = torch.tensor(mol_ids, dtype=torch.int32, device=dev)
-        cmol = torch.from_numpy(c_arr).to(dev)
-        aligned, ins, feas = band_align(
-            torch.from_numpy(r_arr).to(dev),
-            torch.tensor(rlens, dtype=torch.int32, device=dev), mids, cmol,
-            clm, Lc, W)
-        cv, iv, pc = segment_votes(aligned, ins, feas, mids, M)
+        cl_arr = np.array([len(c) for _, c, _ in info], np.int32)
+        devs = self.mesh or [dev]
+        c_dev = torch.from_numpy(c_arr).to(devs[0])
+        cl_dev = torch.from_numpy(cl_arr).to(devs[0])
+        cv, iv, pc = consensus_step.make_sharded_bucket_fn(devs, Lc, W)(
+            r_arr, np.asarray(rlens, np.int32),
+            np.asarray(mol_ids, np.int32), c_dev, cl_dev)
         if not bucketed:
             cv, iv, pc = cv.cpu().numpy(), iv.cpu().numpy(), pc.cpu().numpy()
             for m, (mi, cseq, _) in enumerate(info):
                 results[mi] = self._assemble(cseq, cv[m], iv[m], int(pc[m]),
                                              maxps)
             return
-        codes, qv, out_len = assemble_votes(cv, iv, pc, cmol, clm, maxps)
+        codes, qv, out_len = assemble_votes(cv, iv, pc, c_dev, cl_dev,
+                                            maxps)
         cons_all = _ACGT_NP[codes.cpu().numpy()].tobytes()
         qv_all = (qv.cpu().numpy() + 33).astype(np.uint8).tobytes()
         ends = np.cumsum(out_len.cpu().numpy())

@@ -168,8 +168,8 @@ def tile_scan(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
         return out
     prm = kernel_params(p)
     fn = _build.bind("tilescan", "tilescan_launch", 3, 2)
-    _build.check(fn(rows.data_ptr(), out.data_ptr(), prm.ctypes.data, T,
-                    prm.size, _build.stream_handle(rows.device)), "tilescan")
+    _build.launch(fn, "tilescan", rows.device, rows.data_ptr(),
+                  out.data_ptr(), prm.ctypes.data, T, prm.size)
     tile_scan.launches += 1
     return out
 

@@ -23,7 +23,14 @@ and a run whose pass 1 finds no barcode take the synchronous pass 2
 (`pass2_chunk`: `split_chimeras`, the v1 composite scan `scan_reads`, then
 `bc_search`), chunk by chunk.
 
-Not ported yet (see ROADMAP.md): multi-process runs.
+Multi-GPU: `mesh` (a list of devices) splits both scan passes' rows
+across its devices (`ReadScanModel(mesh=)`). Multi-process: under a
+torch.distributed group (`parallel.multihost.init`, world size > 1) every
+process scans `sorted(files)[rank::world_size]`, the pass-1 whitelist
+counts are summed across processes so that all derive the same used list,
+each writes the passed/ and failed/ files of its own inputs, and process 0
+writes the merged stats and reports. Both write what one device in one
+process writes (tests/test_torch_multichip.py, test_torch_multihost.py).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from sicelore_tpu_torch.utils import dna
 from sicelore_tpu_torch.utils.config import DynamicEDTable, PipelineConfig
 from sicelore_tpu_torch.models import readscan
 from sicelore_tpu_torch.ops import bcsearch, editdist
+from sicelore_tpu_torch.parallel import multihost, shard
 
 BIG = 10**9
 
@@ -122,13 +130,22 @@ class ScanFastqPipeline:
                  known_cells: bool = False,
                  compress: bool = False,
                  device="cuda",
+                 mesh=None,
                  model: "readscan.ReadScanModel | None" = None,
                  cache_pass1: bool | None = None,
                  cache_budget_bytes: int = 4 << 30):
         """`device`: "cuda" (the kernels) or "cpu" (plain torch bodies).
-        `model`: share an existing ReadScanModel (it carries its own cfg
-        and device) across pipeline runs."""
+        `mesh`: a list of devices of that type (["cuda:0", "cuda:1"]; a
+        device may repeat) that both scan passes split their rows across;
+        the outputs are those of one device.
+        `model`: share an existing ReadScanModel (it carries its own cfg,
+        device and mesh) across pipeline runs."""
         if model is not None:
+            # a shared model carries its own cfg and mesh: a diverging one
+            # beside it would split the host logic from the device path
+            if not (mesh is None or shard.resolve_mesh(mesh) == model.mesh):
+                raise ValueError(
+                    "model= and mesh= conflict; build the model with the mesh")
             if not (cfg is None or cfg is model.cfg):
                 raise ValueError(
                     "model= and cfg= conflict; build the model with the cfg")
@@ -136,7 +153,7 @@ class ScanFastqPipeline:
         else:
             self.cfg = cfg or PipelineConfig()
         self.model = model if model is not None else \
-            readscan.ReadScanModel(self.cfg, device=device)
+            readscan.ReadScanModel(self.cfg, device=device, mesh=mesh)
         if whitelist is None:
             raise ValueError("whitelist required (10x barcode list)")
         if isinstance(whitelist, (list, tuple)):
@@ -626,13 +643,19 @@ class ScanFastqPipeline:
             fw.close(wait=False)
 
     def run(self, inputs: list[str | Path], out_dir: str | Path):
-        """Single-process run over fastq files and/or directories."""
+        """Run over fastq files and/or directories, in one process or in
+        each process of a torch.distributed group (see the module
+        docstring)."""
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         files = []
         for p in inputs:
             p = Path(p)
             files.extend(fastq.find_fastq_files(p) if p.is_dir() else [p])
+        nproc = multihost.process_count()
+        first = multihost.process_index() == 0
+        if nproc > 1:
+            files = multihost.shard_files(files)
         # PASS 1 (skipped when a known cell-BC list was provided)
         caching = self._cache_decision(files)
         if self.known_cells:
@@ -648,8 +671,10 @@ class ScanFastqPipeline:
                     self._pass1_apply_cached(p1_q.popleft())
             while p1_q:
                 self._pass1_apply_cached(p1_q.popleft())
+            self.wl_counts = multihost.allreduce_counts(self.wl_counts)
             self.build_used_list()
-            self.write_barcode_list(out_dir / "BarcodeList.tsv")
+            if first:
+                self.write_barcode_list(out_dir / "BarcodeList.tsv")
         else:
             # double-buffered: the device scans chunk i+1 while the host
             # counts chunk i's exact matches
@@ -662,8 +687,10 @@ class ScanFastqPipeline:
                     p1_pending = h
             if p1_pending is not None:
                 self._pass1_apply(self.model.finish_pass1(p1_pending))
+            self.wl_counts = multihost.allreduce_counts(self.wl_counts)
             self.build_used_list()
-            self.write_barcode_list(out_dir / "BarcodeList.tsv")
+            if first:
+                self.write_barcode_list(out_dir / "BarcodeList.tsv")
         # PASS 2
         ext = ".fastq.gz" if self.compress else ".fastq"
         use_fused = not self.random_barcode and self.used_peq is not None
@@ -677,8 +704,36 @@ class ScanFastqPipeline:
                 self._pass2_file(f, out_dir, ext, use_fused)
             self._p1_cache.clear()   # unused when use_fused fell through
         fastq.writer_barrier()
-        self._write_reports(out_dir)
+        if nproc > 1:
+            self._merge_multihost()
+        if first:
+            self._write_reports(out_dir)
         return self.stats
+
+    def _merge_multihost(self):
+        """Sum the scan stats, the ED histogram and the per-barcode
+        assignment histograms across processes (the MergeReadScannerStats
+        role, live), as the JAX pipeline merges them: its int fields, the ED
+        histogram in 8 bins (the last holding 7 and over), and the
+        histograms of the barcodes that have assignments, in used-list
+        order."""
+        scalars = {k: v for k, v in self.stats.__dict__.items()
+                   if isinstance(v, int)}
+        for k, v in multihost.merge_scalar_stats(scalars).items():
+            setattr(self.stats, k, v)
+        ed = np.zeros(8, np.int64)
+        for e, c in self.stats.ed_hist.items():
+            ed[min(int(e), 7)] += c
+        ed = multihost.allreduce_counts(ed)
+        self.stats.ed_hist = defaultdict(
+            int, {e: int(c) for e, c in enumerate(ed) if c})
+        n = len(self.used_strs)
+        hist = np.zeros((n, 8), np.int64)
+        for bi, h in self.assigned_hist.items():
+            hist[bi] = h
+        hist = multihost.allreduce_counts(hist.ravel()).reshape(n, 8)
+        self.assigned_hist = {bi: hist[bi] for bi in range(n)
+                              if hist[bi].any()}
 
     def run_demon(self, inputs: list[str | Path], out_dir: str | Path,
                   poll_interval: float = 30.0, idle_timeout: float = 600.0,
