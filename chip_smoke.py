@@ -5,69 +5,79 @@ Phases (one JSON line each, with its seconds):
 
   env       nvidia-smi name and power limit, torch/CUDA/nvcc versions,
             whether the native host codecs loaded, the kernel build time.
-  kernels   every CUDA kernel against its plain PyTorch version on the
-            card, at the main paths' shapes: the edge scan over a
-            32,768-read 3p chunk and a 32,768-read 5p chunk (encode_two_half's
-            rows [B, 2E] as they are), and over the edge set
-            (edge_set_reads: lengths 0, under k, E, 2E and over 2E, all-N
-            reads, runs at win_p and at word borders, adapter windows off
-            both read ends; 3p and 5p, launches of 1, 37, 129 reads and all),
-            the whitelist sweep of its BC windows against
-            8,192 and 49,152 barcodes, the chimera scan over all tiles of
-            the chunk; the band aligner over 8,192 pairs at (Lc = 512,
-            W = 32), 8,192 at (Lc = 1,024, W = 64) and 256 at (Lc = 2,048,
-            W = 64); the window search over the 5p adapter windows of two
-            chunk halves [65,536, 110], the complete-adapter windows
-            [32,768, 110], the 5p TSO windows [32,768, twin] and six confirm
-            windows a tile [6 x tiles, 160], plus B = 1 and B = 37 with an
-            all-PAD row, and on rows whose data starts 0-15 bytes past a
-            16-byte boundary (WIN1_EDGE_SHAPES); the chimera scan also on
-            edge tiles (tile_edge_rows: 0, 1, 3 and 5 runs a direction,
-            sites at own_lo, own_hi - 1 and tlen - k, confirm windows off
-            both tile ends, an all-PAD tile) in launches of 129 and 1
-            tiles. `wrapper_host_us`: the host time of one `myers_win1`,
-            one `tile_scan` and one 3p and one 5p `edge_scan2` call. The
-            sweep runs with and without the
-            end position (the main path asks for none), also over 4,096
-            reads (a small launch must keep the card full), on small cases
-            that its barcode slices could get wrong (SWEEP_EDGE_CASES) and
-            its merge kernel alone against `merge_sweep_partials_plain`;
-            the band aligner also on pair sets with infeasible, band-edge
-            and empty pairs and a center of length 0 (BAND_EDGE_SHAPES),
-            with both forms of its prefix maximum, and at the aligner's gap
-            buckets (GAP_SHAPES: Lc 64, 128 and 256 at W 32, pairs as
-            `GapBatcher` builds them, each its own molecule, with
-            infeasible and empty ones). `myers_global_pairwise` (a torch
-            body, no kernel) is timed at a large UMI group, 256 UMIs of 12
-            nt and 32 of 16 nt, and held to its CPU run. Tolerance: exact
-            (integer outputs; mismatches must be 0). Median ms of each over
-            >= 5 timed calls (CUDA events), each call on freshly mutated
-            content; `device_ms` is the device time of a call's launches
-            with no host time in it (CUDA events around calls queued behind
-            a spin kernel), `burst_ms` the mean of back-to-back calls as the
-            host issues them (edge scan, band aligner, tile scan, window
-            search). Beside each time stands the kernel's bound on this card
-            (see BOUNDS below); a kernel faster than its bound ends the run.
-            The composed edge body (torch ops + three window searches; the
-            route of configs outside the fused kernel's envelope) is timed
-            on the 5p chunk beside the fused kernel, with a sync-timed split
-            of one call by scan op.
+  kernels   every CUDA kernel against its plain PyTorch version on the card,
+            at the main paths' shapes: the edge scan over a 32,768-read 3p
+            chunk and a 32,768-read 5p chunk (encode_two_half's rows [B, 2E]
+            as they are), and over the edge set (edge_set_reads: lengths 0,
+            under k, E, 2E and over 2E, all-N reads, runs at win_p and at
+            word borders, adapter windows off both read ends; 3p and 5p,
+            launches of 1, 37, 129 reads and all), the whitelist sweep of
+            its BC windows against 8,192 and 49,152 barcodes, the chimera
+            scan over all tiles of the chunk; the tile feed over the 3p
+            chunk's rows (byte-equal to `tile_feed_plain`) and over the feed
+            edge set (feed_edge_reads: lengths around E, 315 and 608, N,
+            lowercase, NUL and other bytes, short chimeras; launches of 1,
+            37 and all), rows at an unaligned offset must raise, and the
+            chimera scan over the feed's rows of the chunk; the band aligner
+            over 8,192 pairs at (Lc = 512, W = 32), 8,192 at (Lc = 1,024, W
+            = 64) and 256 at (Lc = 2,048, W = 64); the window search over
+            the 5p adapter windows of two chunk halves [65,536, 110], the
+            complete-adapter windows [32,768, 110], the 5p TSO windows
+            [32,768, twin] and six confirm windows a tile [6 x tiles, 160],
+            plus B = 1 and B = 37 with an all-PAD row, and on rows whose
+            data starts 0-15 bytes past a 16-byte boundary
+            (WIN1_EDGE_SHAPES); the chimera scan also on edge tiles
+            (tile_edge_rows: 0, 1, 3 and 5 runs a direction, sites at
+            own_lo, own_hi - 1 and tlen - k, confirm windows off both tile
+            ends, an all-PAD tile) in launches of 129 and 1 tiles.
+            `wrapper_host_us`: the host time of one `myers_win1`, one
+            `tile_scan` and one 3p and one 5p `edge_scan2` call. The sweep
+            runs with and without the end position (the main path asks for
+            none), also over 4,096 reads (a small launch must keep the card
+            full), on small cases that its barcode slices could get wrong
+            (SWEEP_EDGE_CASES) and its merge kernel alone against
+            `merge_sweep_partials_plain`; the band aligner also on pair sets
+            with infeasible, band-edge and empty pairs and a center of
+            length 0 (BAND_EDGE_SHAPES), with both forms of its prefix
+            maximum, and at the aligner's gap buckets (GAP_SHAPES: Lc 64,
+            128 and 256 at W 32, pairs as `GapBatcher` builds them, each its
+            own molecule, with infeasible and empty ones).
+            `myers_global_pairwise` (a torch body, no kernel) is timed at a
+            large UMI group, 256 UMIs of 12 nt and 32 of 16 nt, and held to
+            its CPU run. Tolerance: exact (integer outputs; mismatches must
+            be 0). Median ms of each over >= 5 timed calls (CUDA events),
+            each call on freshly mutated content; `device_ms` is the device
+            time of a call's launches with no host time in it (CUDA events
+            around calls queued behind a spin kernel), `burst_ms` the mean
+            of back-to-back calls as the host issues them (edge scan, band
+            aligner, tile scan, window search). Beside each time stands the
+            kernel's bound on this card (see BOUNDS below); a kernel faster
+            than its bound ends the run. The composed edge body (torch ops +
+            three window searches; the route of configs outside the fused
+            kernel's envelope) is timed on the 5p chunk beside the fused
+            kernel, with a sync-timed split of one call by scan op.
   pipeline  `ScanFastqPipeline.run` on `cuda` over a synthetic run of
             131,072 reads in 4 fastq files (8,192 cells drawn from a
             65,536-barcode whitelist; 4% error, ~6% 2-8 kb reads, ~2%
             chimeras, ~2% garbage, ~1% with N near an end), cached pass 1,
             32,768-read chunks. Launch counts are zeroed just before and
-            read just after: every kernel must have launched, no plain
-            body may have run.
+            read just after: every kernel must have launched, the tile feed
+            included (the cached pass 1 on one card scans the interiors of
+            the reads of 316-608 bases from its own upload; the tile scan
+            then runs once on the feed's rows and once on the host tiles of
+            the residue, a chunk: both counts are printed), no plain body
+            may have run.
   parity    the same pipeline on a 4,096-read subset on `cuda` and on `cpu`
             (plain bodies): every output file byte-identical, and assigned
-            barcodes agreeing with the generator's truth.
+            barcodes agreeing with the generator's truth. The `cuda` run
+            takes the fused tile route (the feed must launch), the `cpu` run
+            the host tiles, so the bytes also hold fused == host.
   pipeline_5p  the same run with `PipelineConfig(chemistry="5p")` over
             131,072 synthetic 5p reads (`synth.make_read_5p`, the same mix):
             the fused edge kernel (every launch with 5p parameters, by the
-            wrapper's own 5p count), the sweep and the tile scan must have
-            launched; the window search, the composed body and every plain
-            version not.
+            wrapper's own 5p count), the sweep, the tile feed and the tile
+            scan must have launched; the window search, the composed body
+            and every plain version not.
             Then the CUDA-vs-CPU byte parity on a 4,096-read subset.
   v1_control  the random-barcode negative control (`random_barcode=True`,
             fixed seed, max ED 1) over one 3p file of 32,768 reads on `cuda`:
@@ -76,7 +86,9 @@ Phases (one JSON line each, with its seconds):
             share of the stranded reads must be under 5%; CUDA == CPU bytes
             on a 4,096-read subset with the same seed.
   scanfastq_split  the 3p, 5p and control runs once more, each with a timer
-            (and a device sync) around every stage: seconds by stage.
+            (and a device sync) around every stage: seconds by stage (the
+            host tile build of the residue, `build_tiles`, apart from the
+            tile feed).
   empty_used_list  a whitelist that shares no barcode with the reads, on
             `cuda` and `cpu`: pass 1 finds nothing, pass 2 is `pass2_chunk`,
             nothing is assigned, the bytes agree.
@@ -106,8 +118,9 @@ Phases (one JSON line each, with its seconds):
             attributes them to shards: the edge scan, the sweep and the
             tile scan (scan) and the band kernel (consensus) must have
             launched on every shard, no plain body, window search or
-            composed edge body anywhere. Reads/s and UMIs/s beside the
-            single-device rates.
+            composed edge body anywhere, and no tile feed (with a mesh the
+            cached pass 1 takes the host tiles, as the JAX package does).
+            Reads/s and UMIs/s beside the single-device rates.
   multiprocess  the same scan in two processes joined by a gloo group
             (`parallel.multihost`) on the card, each started as `python -c
             MP_RANK` with a timeout and scanning files[rank::2] of the same
@@ -115,9 +128,9 @@ Phases (one JSON line each, with its seconds):
             BarcodeList.tsv equal the `pipeline` phase's bytes, the merged
             scanner_stats.json its stats, and BarcodesAssigned.tsv its rows
             with tied barcodes in used-list order (the JAX merge's order);
-            each rank must launch the three scan kernels and no plain body,
-            and no edge scan with 5p parameters (counted apart, as in
-            `run`).
+            each rank must launch the three scan kernels and the tile feed
+            and no plain body, and no edge scan with 5p parameters
+            (counted apart, as in `run`).
   steps_1_to_4b  Steps 1 -> 2 -> 3 -> 4b chained on `cuda` (chain_steps):
             scanfastq -> align (the spliced aligner; its gap extension
             runs the band kernel) -> assignumis with the refFlat (UMI
@@ -136,24 +149,24 @@ Phases (one JSON line each, with its seconds):
             carrying it as GE (CHAIN_MIN_SHARE). Its CUDA == CPU parity on a
             subset of about 1,024 reads is split: the `run` phase's subset
             run covers Steps 1-3, and `steps_4b_parity` Step 4b.
-  run       the workflow through the port's CLI in this process
-            (`python -m sicelore_tpu_torch run -b 2 --nativeAlign
-            --collapse --device cuda`, run_workflow) over the chained
-            phase's genome, refFlat, whitelist (as a file) and reads:
-            scanfastq -> align -> assignumis -> barcodes -> isoformmatrix
-            (with the isobam) -> collapsemodel. Launch counts are zeroed
-            just before and read just after: the edge scan, the sweep, the
-            tile scan, the band kernel and `myers_global_pairwise` on the
-            card must have launched, no plain body, composed edge body or
-            window search. The edge launches made with 5p parameters are
-            counted apart (the kernels line's `launches_run`). Each stage's
-            seconds (from the stage lines `run`
-            prints), align reads/s, the gene matrix's genes and cells and
-            the shares of chain_truth. Then `run ... --consensus` on the
-            parity subset on `cuda` and on `cpu` (the consensus stage runs
-            the host engine, as the reference package's `run` does): every
-            file byte-identical; then the same CUDA run on its own output:
-            all eight stages resume and nothing launches.
+  run       the workflow through the port's CLI in this process (`python -m
+            sicelore_tpu_torch run -b 2 --nativeAlign --collapse --device
+            cuda`, run_workflow) over the chained phase's genome, refFlat,
+            whitelist (as a file) and reads: scanfastq -> align ->
+            assignumis -> barcodes -> isoformmatrix (with the isobam) ->
+            collapsemodel. Launch counts are zeroed just before and read
+            just after: the edge scan, the sweep, the tile feed, the tile
+            scan, the band kernel and `myers_global_pairwise` on the card
+            must have launched, no plain body, composed edge body or window
+            search. The edge launches made with 5p parameters are counted
+            apart (the kernels line's `launches_run_5p`). Each stage's
+            seconds (from the stage lines `run` prints), align reads/s, the
+            gene matrix's genes and cells and the shares of chain_truth.
+            Then `run ... --consensus` on the parity subset on `cuda` and on
+            `cpu` (the consensus stage runs the host engine, as the
+            reference package's `run` does): every file byte-identical; then
+            the same CUDA run on its own output: all eight stages resume and
+            nothing launches.
   steps_4b_parity  tagbamwithread and computeconsensus (the device engine)
             on each device's subset run of the `run` phase: umi_us.bam,
             consensus.fastq and its log byte-identical.
@@ -233,6 +246,10 @@ Operation counts, from the kernels' own arithmetic:
     (two columns each) of the union of the columns those windows read and
     the confirm windows' columns inside [0, tlen) (the rest is PAD, known
     from tlen), and the [3, T] int32 output.
+  tilefeed: no operations worth a bound (it moves bytes): bytes only, the
+    code bytes its covered reads' tiles need (L of each read with 315 < L
+    <= 608: its first min(L, E) and its last L - E columns), 4 a read of
+    lens and the [B, 528] output rows.
   win1: windows x columns x 18; the kernel's column step takes more
     instructions than that (the Myers step, its two match-mask lookups
     a pair of columns and the keyed best), so 18 stays the count.
@@ -243,7 +260,7 @@ Operation counts, from the kernels' own arithmetic:
     bookkeeping, shuffles and the traceback (1/W of the cells) are not
     counted; clen is this run's, not Lc (at the gap shapes, each pair's
     own ref segment).
-No PyTorch call computes any of the five functions: `library_ms` is null.
+No PyTorch call computes any of the six functions: `library_ms` is null.
 """
 from __future__ import annotations
 
@@ -507,6 +524,40 @@ def edge_set_reads(rng, chem, n=96):
     seqs += [bytes(s), b"T" * 40, b"A" * 40, b"T" * 20 + b"A" * 20]
     quals = [bytes(33 + (j % 40) for j in range(len(x))) for x in seqs]
     return seqs, quals
+
+
+def feed_edge_reads(rng, n=64):
+    """Reads the tile feed could get wrong (3p and 5p, both strands):
+    lengths at both sides of E, of min_len (2 x 150 + 15 = 315) and of 2E,
+    and outside the feed's range; chimeras of at most 2E bases; reads with
+    an N, a lowercase base, another non-ACGT byte or a NUL byte in the
+    head, in the tail, in both, and whole lowercase reads. Returns (seqs,
+    quals)."""
+    from sicelore_tpu_torch.ops.edgescan import E
+    from sicelore_tpu_torch.utils import synth
+    wl = synth.make_whitelist(rng, 16)
+    junk = lambda L: synth.random_seq(rng, L).encode()   # noqa: E731
+    seqs = [junk(L) for L in (0, 1, 200, E - 1, E, E + 1, 314, 315, 316,
+                              317, 450, 2 * E - 1, 2 * E, 2 * E + 1, 700,
+                              1500)]
+    for i in range(n):
+        make = synth.make_read_5p if i % 2 else synth.make_read
+        seqs.append(make(rng, wl[i % 16],
+                         cdna_len=int(rng.integers(150, 500)),
+                         error_rate=0.04, reverse=i % 3 == 0)["seq"])
+    for i in range(n // 4):
+        seqs.append(synth.make_chimera(
+            rng, wl[i % 16], wl[(i + 5) % 16],
+            cdna_len=int(rng.integers(150, 200)), error_rate=0.03)["seq"])
+    for i, pos in enumerate((0, 10, E - 1, E, E + 1, 400, -E, -1)):
+        for byte in b"NacgtX\x00n":
+            s = bytearray(junk(int(rng.integers(max(330, pos + 1),
+                                                2 * E + 1))))
+            s[pos] = byte
+            s[-1 - i] = byte
+            seqs.append(bytes(s))
+    seqs += [junk(L).lower() for L in (316, 500, 2 * E)]
+    return seqs, [bytes(33 + (j % 40) for j in range(len(x))) for x in seqs]
 
 
 def edge_scan_work(codes, lens, p) -> dict:
@@ -1148,6 +1199,7 @@ def scanfastq_split(pipe, inputs, out_dir) -> dict:
         timed_fn(secs, eg, "encode_two_half", "encode_two_half"),
         timed_fn(secs, readscan, "encode_composite", "encode_composite"),
         timed_fn(secs, readscan, "build_tiles", "build_tiles"),
+        timed_fn(secs, readscan, "tile_feed", "tile_feed", sync=True),
         timed_fn(secs, readscan, "edge_scan2", "edge_scan", sync=True),
         timed_fn(secs, readscan, "tile_scan", "tile_scan", sync=True),
         timed_fn(secs, bcsearch, "bc_sweep", "bc_sweep", sync=True),
@@ -1238,12 +1290,18 @@ def write_subset(src, dst, n):
 def cuda_cpu_outputs(make_pipe, inputs, work, tag):
     """Run make_pipe(device) over inputs on `cuda` and on `cpu`; every
     output file but the HTML report must be byte-identical. Returns (number
-    of files, the cuda pipeline, the cuda output directory)."""
-    blobs, pipes = {}, {}
+    of files, the cuda pipeline, the cuda output directory, {device:
+    {counter: launches > 0}} of each run, `path_counters`)."""
+    blobs, pipes, launches = {}, {}, {}
+    counters = path_counters()
     for d in ("cuda", "cpu"):
         out = work / f"{tag}_{d}"
         pipes[d] = make_pipe(d)
+        before = {k: c.launches for k, c in counters.items()}
         pipes[d].run(inputs, out)
+        launches[d] = {k: c.launches - before[k]
+                       for k, c in counters.items()
+                       if c.launches != before[k]}
         blobs[d] = {str(f.relative_to(out)): f.read_bytes()
                     for f in sorted(out.rglob("*")) if f.is_file()
                     and f.name != "ReadScanner.html"}
@@ -1251,7 +1309,28 @@ def cuda_cpu_outputs(make_pipe, inputs, work, tag):
                   if blobs["cuda"].get(k) != blobs["cpu"].get(k))
     if diff or not blobs["cuda"]:
         raise SystemExit(f"{tag}: cuda/cpu outputs differ: {diff}")
-    return len(blobs["cuda"]), pipes["cuda"], work / f"{tag}_cuda"
+    return len(blobs["cuda"]), pipes["cuda"], work / f"{tag}_cuda", launches
+
+
+def fused_split(launches) -> dict:
+    """The tile scan launches of a cached run on one card split in two:
+    `tilescan_fused`, one a tile feed launch (its rows), and
+    `tilescan_residue`, the host tiles of the reads the feed does not
+    cover (and of split rescans: none, they run the edge scan)."""
+    fused = launches.get("tilefeed", 0)
+    return {"tilescan_fused": fused,
+            "tilescan_residue": launches.get("tilescan", 0) - fused}
+
+
+def check_fused_parity(tag, launches) -> None:
+    """A parity phase's cached runs: the `cuda` run took the fused tile
+    route (the feed launched, no plain body), the `cpu` run the host tiles
+    (no feed, plain or not), so equal bytes hold fused == host."""
+    cu, cpu = launches["cuda"], launches["cpu"]
+    if (cu.get("tilefeed", 0) < 1 or any(k.startswith("plain_") for k in cu)
+            or "plain_tilefeed" in cpu or "tilefeed" in cpu
+            or cpu.get("plain_tilescan", 0) < 1):
+        raise SystemExit(f"{tag}: launches cuda {cu}, cpu {cpu}")
 
 
 def bc_truth(passed_dir, cells):
@@ -1421,7 +1500,7 @@ def chain_truth(aligned_bam, tagged_bam, genes):
 
 
 def path_counters():
-    """{name: function} of every launch counter: the five kernel wrappers,
+    """{name: function} of every launch counter: the six kernel wrappers,
     the composed edge body, myers_global_pairwise, and the plain bodies
     (keys starting "plain_")."""
     from sicelore_tpu_torch.ops import bcsearch, editdist, poa_cuda
@@ -1429,12 +1508,13 @@ def path_counters():
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
     return {"edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
-            "tilescan": ts.tile_scan, "win1": editdist.myers_win1,
-            "bandalign": poa_cuda.band_align,
+            "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan,
+            "win1": editdist.myers_win1, "bandalign": poa_cuda.band_align,
             "edge_composed": eg.edge_scan2_composed,
             "myers_global_pairwise": editdist.myers_global_pairwise,
             "plain_edgescan": eg.edge_scan2_plain,
             "plain_bcsweep": bcsearch.bc_sweep_plain,
+            "plain_tilefeed": ts.tile_feed_plain,
             "plain_tilescan": ts.tile_scan_plain,
             "plain_win1": editdist.myers_win1_plain,
             "plain_bandalign": poa_cuda.band_align_plain,
@@ -1748,8 +1828,8 @@ def workflow_phase(device, cdir, ref, refflat, wl, genes, n_sub):
     ln = wf["launches"]
     if wf["rc"] != 0:
         bad.append(f"run exited {wf['rc']}")
-    if min(ln.get(k, 0) for k in ("edgescan", "bcsweep", "tilescan",
-                                  "bandalign")) < 1:
+    if min(ln.get(k, 0) for k in ("edgescan", "bcsweep", "tilefeed",
+                                  "tilescan", "bandalign")) < 1:
         bad.append("run did not launch its kernels")
     if ln.get("myers_global_pairwise", 0) < 1 or \
             {d for d, _ in ed_calls} != {device}:
@@ -1890,7 +1970,8 @@ def _run(pool, wl, cells, work, dev) -> int:
                               text=True, timeout=60).stdout.strip(
                               ).splitlines()[-1] if nvcc else None
     _build.build_all()
-    for stem in ("edgescan", "bcsweep", "tilescan", "bandalign", "win1"):
+    for stem in ("edgescan", "bcsweep", "tilefeed", "tilescan", "bandalign",
+                 "win1"):
         _build.load(stem)
     emit({"phase": "env", "nvidia_smi": smi, "max_sm_mhz": sm_hz / 1e6,
           "sms": sms,
@@ -2117,6 +2198,62 @@ def _run(pool, wl, cells, work, dev) -> int:
         int((ts.tile_scan(r.to(dev), tp).cpu()
              != ts.tile_scan_plain(r, tp)).sum())
         for r in (edge_rows, edge_rows[6:7].clone(), edge_rows[1:2].clone()))}
+
+    # the tile feed over the chunk's reads (the fused route's rows, fresh
+    # content each call), its edge set in launches of 1, 37 and all, rows
+    # at an unaligned offset, and the chimera scan over what it writes
+    fvars = [codes] + [mutate_reads(codes, lens_d)
+                       for _ in range(TIMED_CALLS)]
+    results["tilefeed"] = compare(
+        "tilefeed", lambda c: ts.tile_feed(c, lens_d, tp),
+        lambda c: ts.tile_feed_plain(c, lens_d, tp), fvars)
+    covered = ts.feed_covered(lens_d.long(), tp)
+    results["tilefeed"].update(bound(
+        int(lens_d.long()[covered].sum()) + 4 * B + ts.ROW_BYTES * B, 0,
+        int32_hz))
+    results["tilefeed"].update({"reads": B, "covered": int(covered.sum())})
+    results["tilefeed"]["device_ms"] = device_ms(
+        lambda c: ts.tile_feed(c, lens_d, tp), fvars[1:])
+    results["tilefeed"]["burst_ms"] = burst_ms(
+        lambda c: ts.tile_feed(c, lens_d, tp), fvars[1:])
+    del fvars
+    fseqs, fquals = feed_edge_reads(np.random.default_rng(SEED + 1000))
+    fc_np, _, fl_np, _ = eg.encode_two_half(fseqs, fquals)
+    feed_set = {}
+    for n in (1, 37, len(fseqs)):
+        got = ts.tile_feed(torch.from_numpy(fc_np[:n]).to(dev),
+                           torch.from_numpy(fl_np[:n]).to(dev), tp)
+        ref = ts.tile_feed_plain(torch.from_numpy(fc_np[:n]),
+                                 torch.from_numpy(fl_np[:n]), tp)
+        feed_set[f"b{n}"] = int((got.cpu() != ref).sum())
+    buf = torch.zeros(2 * 2 * eg.E + 16, dtype=torch.int8, device=dev)
+    try:
+        ts.tile_feed(buf[1:1 + 2 * 2 * eg.E].view(2, -1),
+                     torch.zeros(2, dtype=torch.int32, device=dev), tp)
+        unaligned_raises = False
+    except ValueError:
+        unaligned_raises = True
+    results["tilefeed_edge_cases"] = {
+        "mismatches": sum(feed_set.values()) + (not unaligned_raises),
+        "cases": feed_set, "reads": len(fseqs),
+        "unaligned_raises": unaligned_raises}
+    frows = ts.tile_feed(codes, lens_d, tp)
+    svars = [frows] + [mutate_tiles(frows) for _ in range(TIMED_CALLS)]
+    words_f, sites_f, bytes_f = tile_scan_work(frows, tp)
+    results["tilescan_fed"] = compare(
+        "tilescan_fed", lambda r: ts.tile_scan(r, tp),
+        lambda r: ts.tile_scan_plain(r, tp), svars)
+    results["tilescan_fed"].update(bound(
+        bytes_f + 3 * B * 4,
+        words_f * TILE_WORD_OPS + sites_f * ts.WI_CONFIRM * MYERS_OPS,
+        int32_hz))
+    results["tilescan_fed"].update({"tiles": B, "words": words_f,
+                                    "sites": sites_f})
+    results["tilescan_fed"]["device_ms"] = device_ms(
+        lambda r: ts.tile_scan(r, tp), svars[1:])
+    results["tilescan_fed"]["burst_ms"] = burst_ms(
+        lambda r: ts.tile_scan(r, tp), svars[1:])
+    del svars, frows
 
     # the window search at the shapes its paths give it: the 5p composed
     # edge body's three searches over one chunk, the confirm windows of
@@ -2348,10 +2485,11 @@ def _run(pool, wl, cells, work, dev) -> int:
         return 0        # a kernel's author iterating: no path, no ok line
 
     # ---- the main path: scanfastq on cuda ----
-    counters = (edge_scan2, bcsearch.bc_sweep, ts.tile_scan,
+    counters = (edge_scan2, bcsearch.bc_sweep, ts.tile_feed, ts.tile_scan,
                 editdist.myers_win1, eg.edge_scan2_composed,
                 eg.edge_scan2_plain, bcsearch.bc_sweep_plain,
-                ts.tile_scan_plain, editdist.myers_win1_plain)
+                ts.tile_feed_plain, ts.tile_scan_plain,
+                editdist.myers_win1_plain)
 
     def zero_counts():
         for c in counters:
@@ -2362,11 +2500,13 @@ def _run(pool, wl, cells, work, dev) -> int:
         return ({"edgescan": edge_scan2.launches,
                  "edgescan_5p": edge_scan2.launches_5p,
                  "bcsweep": bcsearch.bc_sweep.launches,
+                 "tilefeed": ts.tile_feed.launches,
                  "tilescan": ts.tile_scan.launches,
                  "win1": editdist.myers_win1.launches,
                  "edge_composed": eg.edge_scan2_composed.launches},
                 {"edgescan": eg.edge_scan2_plain.launches,
                  "bcsweep": bcsearch.bc_sweep_plain.launches,
+                 "tilefeed": ts.tile_feed_plain.launches,
                  "tilescan": ts.tile_scan_plain.launches,
                  "win1": editdist.myers_win1_plain.launches})
 
@@ -2384,8 +2524,9 @@ def _run(pool, wl, cells, work, dev) -> int:
           "used_list": len(pipe.used_strs), "run_s": round(run_s, 3),
           "reads_per_s": round(total / run_s, 1), "stats": stats.to_json(),
           "launches": launches, "plain_launches": plain,
-          "s": round(time.time() - t0, 2)})
-    if (min(launches[k] for k in ("edgescan", "bcsweep", "tilescan")) < 1
+          **fused_split(launches), "s": round(time.time() - t0, 2)})
+    if (min(launches[k] for k in ("edgescan", "bcsweep", "tilefeed",
+                                  "tilescan")) < 1
             or launches["win1"] or launches["edge_composed"]
             or launches["edgescan_5p"] or any(plain.values())):
         raise SystemExit(f"main path launches {launches}, plain {plain}")
@@ -2398,7 +2539,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     t0 = time.time()
     head = write_subset(work / "run" / "reads0.fastq",
                         work / "parity_in" / "subset.fastq", N_PARITY)
-    n_files, _, out_cuda = cuda_cpu_outputs(
+    n_files, _, out_cuda, pl_ln = cuda_cpu_outputs(
         lambda d: ScanFastqPipeline(cfg, whitelist=wl, chunk_size=1024,
                                     user_max_ed=2, cache_pass1=True,
                                     device=d),
@@ -2406,9 +2547,11 @@ def _run(pool, wl, cells, work, dev) -> int:
     n_ok, n_tot = bc_truth(out_cuda / "passed", cells)
     emit({"phase": "parity", "reads": len(head), "files": n_files,
           "identical": n_files, "bc_truth_agree": n_ok, "bc_checked": n_tot,
+          "launches": pl_ln, **fused_split(pl_ln["cuda"]),
           "s": round(time.time() - t0, 2)})
     if n_tot < 1000 or n_ok < 0.97 * n_tot:
         raise SystemExit(f"barcode truth agreement {n_ok}/{n_tot}")
+    check_fused_parity("parity", pl_ln)
 
     # ---- the third main path: 5p scanfastq on cuda (composed edge body) ----
     t0 = time.time()
@@ -2425,8 +2568,10 @@ def _run(pool, wl, cells, work, dev) -> int:
           "reads_per_s": round(total / run5_s, 1),
           "assigned_share": round(stats5.bc_assigned / total, 4),
           "stats": stats5.to_json(), "launches": launches5,
-          "plain_launches": plain5, "s": round(time.time() - t0, 2)})
-    if (min(launches5[k] for k in ("edgescan", "bcsweep", "tilescan")) < 1
+          "plain_launches": plain5, **fused_split(launches5),
+          "s": round(time.time() - t0, 2)})
+    if (min(launches5[k] for k in ("edgescan", "bcsweep", "tilefeed",
+                                   "tilescan")) < 1
             or launches5["win1"] or launches5["edge_composed"]
             or launches5["edgescan_5p"] != launches5["edgescan"]
             or any(plain5.values())):
@@ -2438,7 +2583,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     t0 = time.time()
     head = write_subset(work / "run5p" / "reads0.fastq",
                         work / "parity5p_in" / "subset.fastq", N_PARITY)
-    n_files, _, out_cuda = cuda_cpu_outputs(
+    n_files, _, out_cuda, pl_ln = cuda_cpu_outputs(
         lambda d: ScanFastqPipeline(cfg5, whitelist=wl, chunk_size=1024,
                                     user_max_ed=2, cache_pass1=True,
                                     device=d),
@@ -2446,9 +2591,11 @@ def _run(pool, wl, cells, work, dev) -> int:
     n_ok, n_tot = bc_truth(out_cuda / "passed", cells)
     emit({"phase": "parity_5p", "reads": len(head), "files": n_files,
           "identical": n_files, "bc_truth_agree": n_ok, "bc_checked": n_tot,
+          "launches": pl_ln, **fused_split(pl_ln["cuda"]),
           "s": round(time.time() - t0, 2)})
     if n_tot < 1000 or n_ok < 0.97 * n_tot:
         raise SystemExit(f"5p barcode truth agreement {n_ok}/{n_tot}")
+    check_fused_parity("parity_5p", pl_ln)
 
     # ---- the fourth main path: the random-barcode control (synchronous
     # pass 2: split_chimeras, scan_reads, bc_search) on cuda ----
@@ -2469,7 +2616,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     ctl_s = time.time() - t_run
     launches_c, plain_c = read_counts()
     false_share = stats_c.bc_assigned / max(stats_c.stranded, 1)
-    n_files, _, _ = cuda_cpu_outputs(lambda d: control(d, 1024),
+    n_files, _, _, _ = cuda_cpu_outputs(lambda d: control(d, 1024),
                                      [work / "parity_in"], work,
                                      "control_parity")
     emit({"phase": "v1_control", "reads": stats_c.total_reads,
@@ -2518,7 +2665,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     other = [w for w in synth.make_whitelist(
         np.random.default_rng(SEED + 400), 64) if w not in set(wl)]
     zero_counts()
-    n_files, pipe_e, _ = cuda_cpu_outputs(
+    n_files, pipe_e, _, _ = cuda_cpu_outputs(
         lambda d: ScanFastqPipeline(cfg, whitelist=other, chunk_size=1024,
                                     user_max_ed=2, device=d),
         [work / "parity_in"], work, "empty_list")
@@ -2700,7 +2847,7 @@ def _run(pool, wl, cells, work, dev) -> int:
             or min(sh.get("bandalign", 0)
                    for sh in cons_shards.per_shard) < 1
             or launches_m["win1"] or launches_m["edge_composed"]
-            or any(plain_m.values())
+            or launches_m["tilefeed"] or any(plain_m.values())
             or any(k.startswith("plain_") for sh in scan_shards.per_shard
                    + cons_shards.per_shard for k in sh)):
         raise SystemExit(f"mesh launches {launches_m}, plain {plain_m}, per "
@@ -2755,7 +2902,8 @@ def _run(pool, wl, cells, work, dev) -> int:
             or [r["rank"] for r in ranks] != list(range(len(ranks)))):
         raise SystemExit(f"multiprocess outputs differ: {mp_differ}, "
                          f"BarcodesAssigned {ba_ok}, stats {stats_ok}")
-    if any(min(r["launches"].get(k, 0) for k in mesh_kernels) < 1
+    if any(min(r["launches"].get(k, 0)
+               for k in mesh_kernels + ("tilefeed",)) < 1
            or r["launches"]["edgescan_5p"]
            or any(k.startswith("plain_") or k in ("win1", "edge_composed")
                   for k in r["launches"]) for r in ranks):
@@ -2947,26 +3095,27 @@ def _run(pool, wl, cells, work, dev) -> int:
           "log": pre.stderr.splitlines()[-30:],
           "s": round(time.time() - t0, 2)})
     if pre.returncode or sorted(pre_ms) != sorted(
-            ("edgescan", "bcsweep", "tilescan", "win1", "bandalign")) or \
+            ("edgescan", "bcsweep", "tilefeed", "tilescan", "win1",
+             "bandalign")) or \
             min(pre_ms.values()) <= 0:
         raise SystemExit(f"precompile: rc {pre.returncode}, {pre_ms}")
 
+    # one entry a kernel source; the edge kernel's 5p chunk and launches
+    # stand in its entry under *_5p keys
     src = {"edgescan": ("sicelore_tpu_torch/csrc/edgescan.cu",
                         "sicelore_tpu/ops/edgescan_tpu.py:87", "edgescan"),
-           "edgescan_5p": ("sicelore_tpu_torch/csrc/edgescan.cu",
-                           "sicelore_tpu/ops/edgescan_tpu.py:87",
-                           "edgescan_5p"),
            "bcsweep": ("sicelore_tpu_torch/csrc/bcsweep.cu",
                        "sicelore_tpu/ops/bcsearch.py:34",
                        f"bcsweep_{SWEEP_LISTS[0]}"),
            "tilescan": ("sicelore_tpu_torch/csrc/tilescan.cu",
                         "sicelore_tpu/ops/tilescan_tpu.py:51", "tilescan"),
+           "tilefeed": ("sicelore_tpu_torch/csrc/tilefeed.cu",
+                        "sicelore_tpu/ops/tilescan_tpu.py:239", "tilefeed"),
            "bandalign": ("sicelore_tpu_torch/csrc/bandalign.cu",
                          "sicelore_tpu/ops/poa_tpu.py:251",
                          "bandalign_512_32"),
            "win1": ("sicelore_tpu_torch/csrc/win1.cu",
                     "sicelore_tpu/ops/editdist.py:265", "win1")}
-    launches["edgescan_5p"] = launches5["edgescan_5p"]
     # the window search runs on the control path (the 3p and 5p runs take
     # the fused edge kernel): the control run's count
     launches["win1"] = launches_c["win1"]
@@ -2995,22 +3144,58 @@ def _run(pool, wl, cells, work, dev) -> int:
             rk["launches"].get(name, 0) - (rk["launches"]["edgescan_5p"]
                                            if name == "edgescan" else 0)
             for rk in ranks]
-        if name in ("edgescan", "edgescan_5p"):
+        if name == "edgescan":
+            o = results["edgescan_5p"]
             entry.update({"device_ms": r["device_ms"],
                           "burst_ms": r["burst_ms"], "reads": r["reads"],
                           "ops_per_read": r["ops_per_read"],
-                          "host_us": host_us[name],
+                          "host_us": host_us["edgescan"],
                           "edge_case_mismatches":
-                              results["edgescan_edge_cases"][
-                                  "5p" if name == "edgescan_5p" else "3p"]})
+                              results["edgescan_edge_cases"]["3p"],
+                          # the 5p chunk (32,768 5p reads) and the 5p runs
+                          "ms_5p": o["ms"], "device_ms_5p": o["device_ms"],
+                          "burst_ms_5p": o["burst_ms"],
+                          "plain_ms_5p": o["plain_ms"],
+                          "bound_ms_5p": o["bound_ms"],
+                          "bound_by_5p": o["bound_by"],
+                          "ops_per_read_5p": o["ops_per_read"],
+                          "host_us_5p": host_us["edgescan_5p"],
+                          "edge_case_mismatches_5p":
+                              results["edgescan_edge_cases"]["5p"],
+                          "launches_5p": launches5["edgescan_5p"],
+                          "launches_run_5p":
+                              wf["launches"].get("edgescan_5p", 0),
+                          "launches_mesh_5p": launches_m["edgescan_5p"],
+                          "launches_multiprocess_5p": [
+                              rk["launches"]["edgescan_5p"] for rk in ranks]})
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       o["max_abs_err"])
         if name == "tilescan":
-            entry["device_ms"] = r["device_ms"]
-        if name == "tilescan":
-            entry.update({"burst_ms": r["burst_ms"], "words": r["words"],
+            o = results["tilescan_fed"]
+            entry.update({"device_ms": r["device_ms"],
+                          "burst_ms": r["burst_ms"], "words": r["words"],
                           "sites": r["sites"],
                           "host_us": host_us["tilescan"],
                           "edge_case_mismatches":
-                              results["tilescan_edge_cases"]["mismatches"]})
+                              results["tilescan_edge_cases"]["mismatches"],
+                          # the fused route: the feed's rows of the chunk
+                          "tiles_fed": o["tiles"], "ms_fed": o["ms"],
+                          "device_ms_fed": o["device_ms"],
+                          "burst_ms_fed": o["burst_ms"],
+                          "plain_ms_fed": o["plain_ms"],
+                          "bound_ms_fed": o["bound_ms"],
+                          "sites_fed": o["sites"],
+                          "launches_fused": launches["tilefeed"],
+                          "launches_5p": launches5["tilescan"]})
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       o["max_abs_err"])
+        if name == "tilefeed":
+            entry.update({"device_ms": r["device_ms"],
+                          "burst_ms": r["burst_ms"], "reads": r["reads"],
+                          "covered": r["covered"],
+                          "launches_5p": launches5["tilefeed"],
+                          "edge_case_mismatches":
+                              results["tilefeed_edge_cases"]["mismatches"]})
         if name == "bcsweep":
             # ms: the wrapper's call with the end position; *_nopos: the
             # main path's call; device_ms: the sweep and its merge on the
@@ -3100,6 +3285,10 @@ def _run(pool, wl, cells, work, dev) -> int:
                       "edge_5p_ms": results["edgescan_5p"]["ms"],
                       "edge_composed_5p_ms":
                           results["edge_composed_5p"]["ms"],
+                      "tile_feed_device_ms":
+                          results["tilefeed"]["device_ms"],
+                      "tile_scan_fed_device_ms":
+                          results["tilescan_fed"]["device_ms"],
                       "edge_composed_5p_split_ms":
                           results["edge_composed_5p"]["split_ms"],
                       "scanfastq_split_s": splits,

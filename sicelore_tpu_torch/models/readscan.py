@@ -16,7 +16,12 @@ Kernels (CUDA for CUDA tensors, plain torch for CPU tensors):
                     5p and other configs outside the edge kernel, the v1
                     composite scan, scan_internal)
   * whitelist sweep ops.bcsearch.bc_sweep          (pass 2)
-  * chimera scan    ops.tilescan_cuda.tile_scan    (pass 2)
+  * chimera scan    ops.tilescan_cuda.tile_scan    (pass 2; and pass 1 of
+                                                    the cached pipeline on
+                                                    the fused route)
+  * tile feed       ops.tilescan_cuda.tile_feed    (the fused route: the
+                    tile rows of the reads with min_len < L <= 2E, built
+                    from pass 1's uploaded codes)
 
 The JAX model's `_pack_batch` (nibble packing, power-of-two batch buckets)
 and `_pack_meta` (int16 meta rows) have no counterpart: they shape the
@@ -47,6 +52,7 @@ from sicelore_tpu_torch.ops import bcsearch, editdist, scan
 from sicelore_tpu_torch.ops import edgescan as eg2
 from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
 from sicelore_tpu_torch.ops.tilescan_cuda import (ROW_BYTES, TILE,
+                                                  feed_covered, tile_feed,
                                                   tile_params, tile_scan)
 from sicelore_tpu_torch.parallel import shard
 
@@ -515,17 +521,24 @@ def make_pass1_body2(cfg: PipelineConfig):
     return fn
 
 
-def make_pass1_full_body(cfg: PipelineConfig):
+def make_pass1_full_body(cfg: PipelineConfig, fused_tiles: bool = False):
     """Pass-1 FULL body of the cached pipeline: ONE edge scan emits the
     pass-1 rows, everything pass 2 emits from, and the BC search windows
     (uint8 [bw, B]) the pass-2 sweep reads. fn(codes, lens) -> (rows
-    int32 [len(P1F_ROWS), B], windows uint8 [bw, B])."""
+    int32 [len(P1F_ROWS), B], windows uint8 [bw, B]). With `fused_tiles`
+    a third output: the chimera scan [3, B] int32 of the tile feed's rows
+    of the SAME uploaded codes (n = 0 for a read outside the feed; those
+    with an interior take the host tiles)."""
     p = eg2.edge_params(cfg)
+    tp = tile_params(cfg)
     sel = [r for _, r in P1F_ROWS]
 
     def fn(codes, lens):
         meta = edge_scan2(codes, lens, p)
-        return meta[sel], meta[eg2.ROW_BC0:].to(torch.uint8)
+        out = (meta[sel], meta[eg2.ROW_BC0:].to(torch.uint8))
+        if fused_tiles:
+            out += (tile_scan(tile_feed(codes, lens, tp), tp),)
+        return out
 
     return fn
 
@@ -590,9 +603,19 @@ def _upload(dev, codes: np.ndarray, lens: np.ndarray, a: int, b: int):
             torch.from_numpy(lens[a:b]).to(dev))
 
 
+def fused_tiles_route(device: torch.device, mesh) -> bool:
+    """Whether the cached pass 1 scans the short reads' interiors from its
+    own upload (the tile feed): on a CUDA device without a mesh, as the
+    JAX package does on its accelerator without one
+    (`_p1f_tiles = on_tpu and self.mesh is None`)."""
+    return torch.device(device).type == "cuda" and mesh is None
+
+
 class ReadScanModel:
     """Host-side wrapper: owns the pattern bitmasks, the pass bodies and the
-    bound used-barcode list on one device, or on each device of a mesh."""
+    bound used-barcode list on one device, or on each device of a mesh.
+    `_p1f_tiles` (from `fused_tiles_route`; a test may set it) picks the
+    cached pass 1's route for the chimera scan."""
 
     def __init__(self, cfg: PipelineConfig | None = None, device="cuda",
                  mesh=None):
@@ -608,6 +631,9 @@ class ReadScanModel:
         self._tile_params = tile_params(self.cfg)
         self._pass1_fn = make_pass1_body2(self.cfg)
         self._pass1_full_fn = make_pass1_full_body(self.cfg)
+        self._pass1_full_tiles_fn = make_pass1_full_body(self.cfg,
+                                                         fused_tiles=True)
+        self._p1f_tiles = fused_tiles_route(self.device, self.mesh)
         self._edge_fn = make_edge_scan_fn(self.cfg)
         self._internal_fn = make_internal_scan_fn(self.cfg)
 
@@ -697,25 +723,55 @@ class ReadScanModel:
     # -- pass-1 FULL variant + sweep-only pass 2 (cached pipeline) -------
 
     def scan_pass1_full_async(self, seqs: list[bytes], quals: list[bytes]):
-        """Launch the pass-1 FULL scan (edge rows + BC windows, see
+        """Launch the pass-1 FULL scan (edge rows + BC windows, and on the
+        fused route the short reads' chimera scan, see
         make_pass1_full_body); force with finish_pass1_full."""
         codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
-        hs = self._sharded(len(true_lens),
-                           lambda dev, a, b: self._pass1_full_fn(
-                               *_upload(dev, codes, true_lens, a, b)))
+        body = self._pass1_full_tiles_fn if self._p1f_tiles \
+            else self._pass1_full_fn
+        hs = self._sharded(len(true_lens), lambda dev, a, b: body(
+            *_upload(dev, codes, true_lens, a, b)))
         return hs, qv2, true_lens, qsum
 
     def finish_pass1_full(self, handle):
         """-> (out dict with finalized ps/pe/ae/tso/x windows and all three
         QV means, the BC search windows uint8 [bw, B] for the pass-2
-        sweep)."""
+        sweep, the fused route's chimera scan [3, B] int32 or None)."""
         hs, qv2, true_lens, qsum = handle
         out = finalize_rows_np(_host_rows(hs, 0), P1F_ROW_NAMES, true_lens,
                                self.cfg)
         eg2.compute_qvs2_np(qv2, true_lens, out,
                             self.cfg.barcodes.cell_bc_length, self.is5p,
                             qsum)
-        return out, _host_rows(hs, 1)
+        tiles3 = _host_rows(hs, 2) if len(hs[0]) == 3 else None
+        return out, _host_rows(hs, 1), tiles3
+
+    def tiles_fused_mask(self, true_lens, dirty):
+        """(covered, need): the reads whose chimera scan the fused pass 1
+        already made (`feed_covered`, not dirty), and the rest with an
+        interior (L > min_len), which still need the host tiles. The port's
+        codes are N-safe, so its caller passes `dirty` all False."""
+        L = np.asarray(true_lens).astype(np.int64)
+        has_interior = L > 2 * self._tile_params.edge + self._tile_params.k
+        covered = feed_covered(L, self._tile_params) & ~np.asarray(dirty)
+        return covered, has_interior & ~covered
+
+    def finish_tiles_merged(self, tiles3, covered, sub_handle, need_idx):
+        """Merge the fused route's chimera scan of the covered reads with
+        the host tile scan of the residue (`sub_handle`, over the reads
+        `need_idx`) -> (splits, discard) as finish_internal_tiles returns
+        them. A covered read's tile starts at 0, so its splits are read
+        positions."""
+        n, s0, s1 = tiles3
+        splits, discard = _collect_splits(
+            (int(r), 0, int(n[r]), int(s0[r]), int(s1[r]))
+            for r in np.nonzero((n > 0) & covered)[0])
+        sub_splits, sub_discard = self.finish_internal_tiles(sub_handle)
+        for si, pos in sub_splits.items():
+            splits[int(need_idx[si])] = pos
+        for si in sub_discard:
+            discard.add(int(need_idx[si]))
+        return splits, discard
 
     def bc_sweep_async(self, windows_tm: np.ndarray):
         """Launch the whitelist sweep alone on cached pass-1 BC windows
@@ -855,22 +911,31 @@ class ReadScanModel:
         hs, read_idx, g0s = handle
         arr = _host_rows(hs)
         n, s0, s1 = arr[0], arr[1], arr[2]
-        per_read: dict[int, set] = {}
-        for t in np.nonzero(n > 0)[0]:
-            r = int(read_idx[t])
-            g = int(g0s[t])
-            ps = per_read.setdefault(r, set())
-            if n[t] >= 1 and s0[t] >= 0:
-                ps.add(g + int(s0[t]))
-            if n[t] >= 2 and s1[t] >= 0:
-                ps.add(g + int(s1[t]))
-            if n[t] > 2:
-                ps.add(-1)  # >2 distinct in one tile: multi-chimeric
-        splits: dict[int, list[int]] = {}
-        discard: set[int] = set()
-        for r, ps in per_read.items():
-            if -1 in ps or len(ps) > 1:
-                discard.add(r)
-            elif len(ps) == 1:
-                splits[r] = sorted(ps)
-        return splits, discard
+        return _collect_splits(
+            (int(read_idx[t]), int(g0s[t]), int(n[t]), int(s0[t]),
+             int(s1[t])) for t in np.nonzero(n > 0)[0])
+
+
+def _collect_splits(tiles):
+    """(read, g0, n, split0, split1) of each tile with n > 0, splits
+    tile-local (-1 when absent) -> (splits {read: [g0 + split]} for
+    single-junction reads, discard set for multi-junction reads: more than
+    one distinct split over the read's tiles, or more than two in one
+    tile)."""
+    per_read: dict[int, set] = {}
+    for r, g, n, s0, s1 in tiles:
+        ps = per_read.setdefault(r, set())
+        if n >= 1 and s0 >= 0:
+            ps.add(g + s0)
+        if n >= 2 and s1 >= 0:
+            ps.add(g + s1)
+        if n > 2:
+            ps.add(-1)  # >2 distinct in one tile: multi-chimeric
+    splits: dict[int, list[int]] = {}
+    discard: set[int] = set()
+    for r, ps in per_read.items():
+        if -1 in ps or len(ps) > 1:
+            discard.add(r)
+        elif len(ps) == 1:
+            splits[r] = sorted(ps)
+    return splits, discard

@@ -4,7 +4,8 @@ kernel (csrc/win1.cu).
 
 Port of `sicelore_tpu/ops/editdist.py` (`build_peq`, the Hyyrö column update,
 `_eq_select`, `myers_sweep`, `best_two`, `myers_global_pairwise`,
-`myers_win1_pallas`). Patterns are
+`myers_win1_pallas`, and copies of its scalar numpy references
+`levenshtein_np`, `semiglobal_ed_np`, `semiglobal_ed_np_batch`). Patterns are
 Peq bitmasks: bit i of Peq[c, n] is set iff pattern n position i equals base
 c. N and PAD text characters select an all-zero mask, so they never match.
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from sicelore_tpu_torch.ops import _build
+from sicelore_tpu_torch.utils import dna
 
 INT_MAX = 2**31 - 1  # reference reports ed_sec=2147483647 when none found
 WIN1_MAX_W = 2**26   # csrc/win1.cu keys (score, column) in 32 bits
@@ -35,6 +37,81 @@ def build_peq(patterns: np.ndarray) -> np.ndarray:
         for c in range(4):
             peq[c] |= ((patterns[:, i] == c).astype(np.uint32)) << np.uint32(i)
     return peq
+
+
+# ---------------------------------------------------------------------------
+# Scalar numpy references
+# ---------------------------------------------------------------------------
+
+def levenshtein_np(a, b) -> int:
+    """Plain Levenshtein distance between two code arrays / strings."""
+    if isinstance(a, (str, bytes)):
+        a = dna.encode(a)
+    if isinstance(b, (str, bytes)):
+        b = dna.encode(b)
+    la, lb = len(a), len(b)
+    prev = np.arange(lb + 1)
+    for i in range(1, la + 1):
+        cur = np.empty(lb + 1, dtype=np.int64)
+        cur[0] = i
+        for j in range(1, lb + 1):
+            cost = 0 if (a[i - 1] == b[j - 1] and a[i - 1] < 4) else 1
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + cost)
+        prev = cur
+    return int(prev[lb])
+
+
+def semiglobal_ed_np(pattern, text) -> tuple[int, int]:
+    """Min ED of pattern vs any substring of text; returns (ed, end_pos).
+
+    end_pos is the 0-based index of the last text char of the best match
+    (first position on ties, matching the device kernel)."""
+    if isinstance(pattern, (str, bytes)):
+        pattern = dna.encode(pattern)
+    if isinstance(text, (str, bytes)):
+        text = dna.encode(text)
+    m, w = len(pattern), len(text)
+    col = np.arange(m + 1)  # D[i][0] = i
+    best, best_pos = m, -1
+    for j in range(1, w + 1):
+        newcol = np.empty(m + 1, dtype=np.int64)
+        newcol[0] = 0  # free text start
+        for i in range(1, m + 1):
+            cost = 0 if (pattern[i - 1] == text[j - 1]
+                         and pattern[i - 1] < 4) else 1
+            newcol[i] = min(col[i] + 1, newcol[i - 1] + 1, col[i - 1] + cost)
+        col = newcol
+        if col[m] < best:
+            best, best_pos = int(col[m]), j - 1
+    return best, best_pos
+
+
+def semiglobal_ed_np_batch(patterns: np.ndarray, texts: np.ndarray):
+    """Vectorized numpy reference of `myers_sweep`.
+
+    patterns [N, m] int8, texts [B, W] int8 -> (ed [B, N], end_pos [B, N]).
+    """
+    N, m = patterns.shape
+    B, W = texts.shape
+    col = np.broadcast_to(np.arange(m + 1)[None, None, :],
+                          (B, N, m + 1)).copy()
+    best = np.full((B, N), m, dtype=np.int64)
+    best_pos = np.full((B, N), -1, dtype=np.int64)
+    for j in range(W):
+        tc = texts[:, j][:, None, None]  # [B,1,1]
+        match = ((patterns[None, :, :] == tc) & (patterns[None, :, :] < 4)
+                 & (tc < 4))
+        newcol = np.empty_like(col)
+        newcol[:, :, 0] = 0
+        for i in range(1, m + 1):
+            newcol[:, :, i] = np.minimum(
+                np.minimum(col[:, :, i] + 1, newcol[:, :, i - 1] + 1),
+                col[:, :, i - 1] + (~match[:, :, i - 1]).astype(np.int64))
+        col = newcol
+        better = col[:, :, m] < best
+        best_pos = np.where(better, j, best_pos)
+        best = np.where(better, col[:, :, m], best)
+    return best, best_pos
 
 
 def peq_tensor(peq: np.ndarray | torch.Tensor, device) -> torch.Tensor:

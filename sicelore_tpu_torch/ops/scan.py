@@ -85,6 +85,31 @@ def polyat_find(seqs: torch.Tensor, lens: torch.Tensor, *, base: int, k: int,
     return found, start, end
 
 
+def internal_polyat(seqs: torch.Tensor, lens: torch.Tensor, *, base: int,
+                    k: int, min_count: int, edge_exclusion: int):
+    """Detect polyA/T runs away from both read ends (chimera evidence).
+
+    Returns found [B] bool and the start position [B] int32 of the first
+    internal passing window (-1 when none): a k-window with at least
+    min_count `base` codes, inside the read and at least edge_exclusion
+    bases from both ends."""
+    B, L = seqs.shape
+    dev = seqs.device
+    if L < k:
+        return (torch.zeros(B, dtype=torch.bool, device=dev),
+                torch.full((B,), -1, dtype=torch.int32, device=dev))
+    lens = lens.long()
+    counts = _rolling_count((seqs == base).to(torch.int32), k)
+    pos = torch.arange(L - k + 1, device=dev)[None, :]
+    inread = pos <= (lens[:, None] - k)
+    internal = ((pos >= edge_exclusion)
+                & ((pos + k - 1) < (lens[:, None] - edge_exclusion)))
+    ok = (counts >= min_count) & inread & internal
+    j = torch.where(ok, pos, -NEG).min(dim=1).values
+    found = j < -NEG
+    return found, torch.where(found, j, -1).to(torch.int32)
+
+
 def adapter_search_plain(windows: torch.Tensor, peq1, m: int):
     """One pattern (Peq [4, 1]) against each window row -> ed [B], end
     position [B] (int32; ties take the first position). Always the plain

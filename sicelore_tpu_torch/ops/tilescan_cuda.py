@@ -1,5 +1,5 @@
-"""Tiled chimera scan: CUDA kernel wrapper (csrc/tilescan.cu) and its plain
-PyTorch version.
+"""Tiled chimera scan: CUDA kernel wrappers (csrc/tilescan.cu, and the fused
+short-read tile feed csrc/tilefeed.cu) and their plain PyTorch versions.
 
 Replaces the Pallas kernel `sicelore_tpu/ops/tilescan_tpu.py::_tile_kernel`.
 Both take the nibble tile rows of `models.readscan.build_tiles`
@@ -8,6 +8,11 @@ tlen u16, pad, g0 u32, rlen u32) and return [3, T] int32: the number of
 distinct confirmed split positions and the first two (tile-local; -1 when
 absent). The plain version is a torch port of
 `sicelore_tpu/models/readscan.py::_make_internal_tile_inner`.
+
+The tile feed builds those rows on the device from `encode_two_half`'s codes
+for the reads that lie whole in them (the route of
+`sicelore_tpu/ops/tilescan_tpu.py::make_composite_tile_fn`), so the cached
+pass 1 scans their interiors from the upload it has already made.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from sicelore_tpu_torch.utils import dna
 from sicelore_tpu_torch.utils.config import PipelineConfig
 from sicelore_tpu_torch.ops import _build, editdist, scan
+from sicelore_tpu_torch.ops.edgescan import E
 
 TILE = 1024
 TILE_META = 16
@@ -37,6 +43,7 @@ class TileParams:
     m_adc: int
     edmax: int
     peq_adc: np.ndarray   # uint32 [4, 1]
+    edge: int             # polyA search window kept off both read ends
 
 
 def tile_params(cfg: PipelineConfig) -> TileParams:
@@ -47,7 +54,15 @@ def tile_params(cfg: PipelineConfig) -> TileParams:
         k=k, mc=scan.min_count_for(k, p.internal_fraction_at_in_polyat),
         m_adc=len(a.sequence_complete),
         edmax=a.max_complete_seq_needleman_mismatches,
-        peq_adc=editdist.build_peq(dna.encode(a.sequence_complete)[None, :]))
+        peq_adc=editdist.build_peq(dna.encode(a.sequence_complete)[None, :]),
+        edge=p.window_search_for_polya)
+
+
+def feed_covered(lens, p: TileParams):
+    """The reads whose tile the feed builds: min_len < L <= 2E, min_len =
+    2 edge + k (their interior lies whole in the two-half codes). Works on
+    numpy arrays and tensors alike."""
+    return (lens > 2 * p.edge + p.k) & (lens <= 2 * E)
 
 
 def _unpack(rows: torch.Tensor):
@@ -175,3 +190,76 @@ def tile_scan(rows: torch.Tensor, p: TileParams) -> torch.Tensor:
 
 
 tile_scan.launches = 0
+
+
+def _pack_rows(codes: torch.Tensor, meta) -> torch.Tensor:
+    """Tile codes [T, TILE] (0..5) and meta columns (own_lo, own_hi, tlen,
+    g0, rlen; each [T] int64) -> build_tiles rows [T, ROW_BYTES] uint8."""
+    c = codes.to(torch.uint8)
+    own_lo, own_hi, tlen, g0, rlen = meta
+    cols = [own_lo, own_lo >> 8, own_hi, own_hi >> 8, tlen, tlen >> 8,
+            torch.zeros_like(tlen), torch.zeros_like(tlen)]
+    cols += [v >> s for v in (g0, rlen) for s in (0, 8, 16, 24)]
+    mb = (torch.stack(cols, dim=1) & 0xFF).to(torch.uint8)
+    return torch.cat([(c[:, 0::2] << 4) | c[:, 1::2], mb], dim=1)
+
+
+def tile_feed_plain(codes: torch.Tensor, lens: torch.Tensor,
+                    p: TileParams) -> torch.Tensor:
+    """Plain PyTorch tile feed: encode_two_half's codes [B, 2E] int8 and
+    lens [B] -> [B, ROW_BYTES] uint8, one row a read. A covered read
+    (`feed_covered`) gets the one row build_tiles writes for it (g0 = 0,
+    the tail shifted by 2E - L into place, PAD from L on, a PAD code inside
+    the read as N, as build_tiles encodes a NUL byte); every other read an
+    inert row (PAD codes, zero meta), which the scan reports as n = 0."""
+    tile_feed_plain.launches += 1
+    dev = codes.device
+    L = lens.to(device=dev, dtype=torch.int64)
+    cov = feed_covered(L, p)
+    j = torch.arange(TILE, device=dev)[None, :]
+    src = torch.where(j < E, j, j + 2 * E - L[:, None]).clamp(0, 2 * E - 1)
+    c = codes.gather(1, src)
+    c = torch.where(c == dna.PAD, dna.N_CODE, c)
+    c = torch.where((j < L[:, None]) & cov[:, None], c, dna.PAD)
+    zero = torch.zeros_like(L)
+    lc = torch.where(cov, L, zero)
+    return _pack_rows(c, (
+        torch.where(cov, p.edge, zero),
+        torch.where(cov, (L - p.edge - p.k + 1).clamp(min=0), zero),
+        lc, zero, lc))
+
+
+tile_feed_plain.launches = 0
+
+
+def tile_feed(codes: torch.Tensor, lens: torch.Tensor,
+              p: TileParams) -> torch.Tensor:
+    """Tile rows [B, ROW_BYTES] uint8 of encode_two_half's codes [B, 2E]
+    int8 and lens [B] int32 (see tile_feed_plain). CPU tensors take the
+    plain version; CUDA tensors launch csrc/tilefeed.cu on the codes as
+    they are (contiguous, 16-byte aligned: the kernel stages them with
+    16-byte loads)."""
+    if codes.dim() != 2 or codes.shape[1] != 2 * E:
+        raise ValueError(f"codes must be [B, 2E={2 * E}], "
+                         f"got {tuple(codes.shape)}")
+    B = codes.shape[0]
+    if codes.device.type == "cpu":
+        return tile_feed_plain(codes, lens, p)
+    if codes.dtype != torch.int8 or not codes.is_contiguous():
+        raise ValueError("codes must be contiguous int8")
+    if codes.data_ptr() % 16:
+        raise ValueError("codes must start on a 16-byte boundary")
+    if (lens.dtype != torch.int32 or lens.shape != (B,)
+            or lens.device != codes.device or not lens.is_contiguous()):
+        raise ValueError("lens must be contiguous int32 [B] on codes' device")
+    out = torch.empty((B, ROW_BYTES), dtype=torch.uint8, device=codes.device)
+    if B == 0:
+        return out
+    fn = _build.bind("tilefeed", "tilefeed_launch", 3, 3)
+    _build.launch(fn, "tilefeed", codes.device, codes.data_ptr(),
+                  lens.data_ptr(), out.data_ptr(), B, p.edge, p.k)
+    tile_feed.launches += 1
+    return out
+
+
+tile_feed.launches = 0

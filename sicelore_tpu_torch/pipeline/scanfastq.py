@@ -15,7 +15,11 @@ scanner_stats.json — are byte-identical to the JAX pipeline's
   PASS 2 (assignment): the tiled chimera scan splits single-junction reads
     (part 2 renamed `<name>sp2`) and discards multi-junction reads; every
     (sub)read's BC window sweeps the used list; assignment needs best ED <=
-    the dynamic max ED and strictly better than the second best.
+    the dynamic max ED and strictly better than the second best. With the
+    cache on one CUDA device (`readscan.fused_tiles_route`) pass 1 already
+    scanned the interiors of the reads with min_len < L <= 2E from its own
+    upload (the tile feed) and dispatched the host tiles of the rest, so
+    pass 2 only merges the two (`finish_tiles_merged`).
 
 Negative control: `random_barcode` replaces each read's BC window with random
 bases (reference -e/--randomBarcode) to measure the false-assignment rate; it
@@ -186,7 +190,8 @@ class ScanFastqPipeline:
         # sweep alone on the cached windows
         self.cache_pass1 = cache_pass1
         self.cache_budget_bytes = cache_budget_bytes
-        self._p1_cache: list[tuple] = []   # (file, chunk, out, windows_tm)
+        # (file, chunk, out, windows_tm, the fused route's tile handle)
+        self._p1_cache: list[tuple] = []
 
     # ------------------------------------------------------------------
     # PASS 1
@@ -213,11 +218,21 @@ class ScanFastqPipeline:
 
     def _pass1_apply_cached(self, pending):
         """Force one FULL pass-1 chunk: count exact matches for the used
-        list AND store the chunk's pass-2 inputs."""
+        list AND store the chunk's pass-2 inputs. On the fused route the
+        host tile scan of the residue (reads with an interior the feed did
+        not cover) is dispatched now, so pass 2 only waits for it."""
         chunk, f, h = pending
-        out, wins = self.model.finish_pass1_full(h)
+        out, wins, tiles3 = self.model.finish_pass1_full(h)
         self._pass1_apply(out)
-        self._p1_cache.append((f, chunk, out, wins))
+        th = None
+        if tiles3 is not None:
+            # N-safe codes: no read is dirty
+            covered, need = self.model.tiles_fused_mask(
+                out["true_lens"], np.zeros(len(chunk), bool))
+            need_idx = np.nonzero(need)[0]
+            th = ("fused", tiles3, covered, self.model.internal_tiles_async(
+                [chunk.seqs[i] for i in need_idx]), need_idx)
+        self._p1_cache.append((f, chunk, out, wins, th))
 
     def _run_pass2_cached(self, out_dir, ext):
         """Pass 2 over the pass-1 cache: per chunk, launch the tiled chimera
@@ -247,10 +262,12 @@ class ScanFastqPipeline:
             split_job = (nj[0], nj[1], pw, fw) if nj is not None else None
 
         try:
-            for f, chunk, out, wins in self._p1_cache:
+            for f, chunk, out, wins, th0 in self._p1_cache:
                 pw, fw = get_writers(f)
                 self.stats.total_reads += len(chunk)
-                th = self.model.internal_tiles_async(chunk.seqs)
+                # fused route: the tiles were dispatched in pass 1
+                th = th0 if th0 is not None else \
+                    self.model.internal_tiles_async(chunk.seqs)
                 sh = self.model.bc_sweep_async(wins)
                 pending.append((chunk, out, th, sh, pw, fw))
                 if len(pending) > 2:
@@ -267,10 +284,14 @@ class ScanFastqPipeline:
                 fw.close(wait=False)
 
     def _finish_chunk_cached(self, chunk, out, th, sh, pw, fw):
-        """Cached-mode chunk finisher: chimera splits from the tile scan,
-        bc from the sweep-only search, emit from cached pass-1 rows.
-        Returns the deferred split-rescan job (see _finish_chunk)."""
-        splits, discard = self.model.finish_internal_tiles(th)
+        """Cached-mode chunk finisher: chimera splits from the tile scan
+        (merged with the fused route's), bc from the sweep-only search,
+        emit from cached pass-1 rows. Returns the deferred split-rescan job
+        (see _finish_chunk)."""
+        if isinstance(th, tuple) and th[0] == "fused":
+            splits, discard = self.model.finish_tiles_merged(*th[1:])
+        else:
+            splits, discard = self.model.finish_internal_tiles(th)
         bc = self.model.finish_bc_sweep(sh)
         self.stats.multi_chimeric_discarded += len(discard)
         self.stats.split_chimeric += len(splits)

@@ -10,7 +10,8 @@ and the first launch of each kernel on the card. `warm` pays them up front:
   - builds every `csrc/*.cu` (`_build.build_all`, one nvcc a source, all in
     parallel);
   - launches the edge scan, the whitelist sweep (at `n_bc` barcodes), the
-    tile scan and the window search once each at a scanfastq chunk's shapes
+    tile feed, the tile scan and the window search once each at a
+    scanfastq chunk's shapes
     (CHUNK reads; with `full`, also the smaller tail chunks), and the band
     aligner at the consensus buckets (Lc 256 and 512; with `full`, 1,024
     and 2,048) and at the aligner's gap buckets (Lc 64; with `full`, 128
@@ -30,7 +31,8 @@ from __future__ import annotations
 import sys
 import time
 
-KERNELS = ("edgescan", "bcsweep", "tilescan", "win1", "bandalign")
+KERNELS = ("edgescan", "bcsweep", "tilefeed", "tilescan", "win1",
+           "bandalign")
 CHUNK = 50_000    # reads a scanfastq chunk (ScanFastqPipeline's chunk_size)
 
 
@@ -39,7 +41,7 @@ def _counters():
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
     return {"edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
-            "tilescan": ts.tile_scan, "win1": editdist.myers_win1,
+            "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan, "win1": editdist.myers_win1,
             "bandalign": poa_cuda.band_align}
 
 
@@ -54,9 +56,12 @@ def jobs(dev, n_bc: int, full: bool, chunk: int) -> list:
     """[(name, kernel, fn)]: the warm calls on `dev`, each of which launches
     `kernel` at least once (on a CPU device they run the plain bodies)."""
     import numpy as np
+    import torch
 
     from sicelore_tpu_torch.align.extend import GapBatcher
     from sicelore_tpu_torch.models import readscan
+    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.poa_cuda import BatchedConsensusEngine
     from sicelore_tpu_torch.utils import dna, synth
     from sicelore_tpu_torch.utils.config import PipelineConfig
@@ -76,12 +81,19 @@ def jobs(dev, n_bc: int, full: bool, chunk: int) -> list:
         wins[len(seqs)] = model.finish_pass1_full(
             model.scan_pass1_full_async(seqs, quals))[1]
 
+    def feed(seqs, quals):
+        codes, _, lens, _ = eg.encode_two_half(seqs, quals)
+        ts.tile_feed(torch.from_numpy(codes).to(dev),
+                     torch.from_numpy(lens).to(dev), model._tile_params)
+
     out = []
     for B in [chunk] + ([4_096, 256] if full else []):
         seqs = _reads(rng, B, 600)
         quals = [b"I" * 600] * B
         out.append((f"edgescan_B{B}", "edgescan",
                     lambda s=seqs, q=quals: pass1(s, q)))
+        out.append((f"tilefeed_B{B}", "tilefeed",
+                    lambda s=seqs, q=quals: feed(s, q)))
         out.append((f"bcsweep_B{B}_N{n_bc}", "bcsweep",
                     lambda B=B: model.finish_bc_sweep(
                         model.bc_sweep_async(wins[B]))))

@@ -18,6 +18,7 @@ from sicelore_tpu.io import bgzf as j_bgzf
 from sicelore_tpu.io import fastq as j_fastq
 from sicelore_tpu.io import native as j_native
 from sicelore_tpu.io import sam as j_sam
+from sicelore_tpu.ops import editdist as j_editdist
 from sicelore_tpu.ops import poa as j_poa
 from sicelore_tpu.pipeline import annotate as j_annotate
 from sicelore_tpu.pipeline import collapsemodel as j_collapsemodel
@@ -45,6 +46,7 @@ from sicelore_tpu_torch.io import bgzf as t_bgzf
 from sicelore_tpu_torch.io import fastq as t_fastq
 from sicelore_tpu_torch.io import native as t_native
 from sicelore_tpu_torch.io import sam as t_sam
+from sicelore_tpu_torch.ops import editdist as t_editdist
 from sicelore_tpu_torch.ops import poa as t_poa
 from sicelore_tpu_torch.pipeline import annotate as t_annotate
 from sicelore_tpu_torch.pipeline import collapsemodel as t_collapsemodel
@@ -594,6 +596,24 @@ def _check_mergestats(host, tmp_path):
                  [host["assigned"], host["assigned2"]], Out("a.tsv"))
     assert r["barcodes"] > 0
 
+def _check_editdist():
+    """The scalar numpy references of ops/editdist.py: strings, bytes and
+    code arrays with N, empty sequences, and the batched sweep."""
+    rng = np.random.default_rng(17)
+    seqs = _seqs(17, 12) + ["ACGTN", "", b"acgtNN"]
+    for a in seqs:
+        for b in seqs[:6]:
+            assert t_editdist.levenshtein_np(a, b) == \
+                j_editdist.levenshtein_np(a, b)
+            assert t_editdist.semiglobal_ed_np(b[:20], a) == \
+                j_editdist.semiglobal_ed_np(b[:20], a)
+    pats = rng.integers(0, 5, (5, 9)).astype(np.int8)
+    texts = rng.integers(0, 6, (7, 40)).astype(np.int8)
+    for got, want in zip(t_editdist.semiglobal_ed_np_batch(pats, texts),
+                         j_editdist.semiglobal_ed_np_batch(pats, texts)):
+        np.testing.assert_array_equal(got, want)
+
+
 CHECKS = {
     "dna": _check_dna, "config": _check_config, "synth": _check_synth,
     "readname": _check_readname, "fastq": _check_fastq, "bam": _check_bam,
@@ -611,7 +631,7 @@ CHECKS = {
     "isoform": _check_isoform, "collapsemodel": _check_collapsemodel,
     "snp_fusion": _check_snp_fusion, "annotate": _check_annotate,
     "programs2": _check_programs2, "qc": _check_qc,
-    "mergestats": _check_mergestats,
+    "mergestats": _check_mergestats, "editdist": _check_editdist,
 }
 
 

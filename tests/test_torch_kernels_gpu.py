@@ -399,6 +399,60 @@ def test_tile_kernel_rejects_other_inputs(dev):
         ts.tile_scan(rows[:, :ts.ROW_BYTES], p)
 
 
+@pytest.mark.parametrize("n", [1, 33, None])
+def test_tile_feed_kernel_matches_plain(dev, reads, n):
+    """csrc/tilefeed.cu against tile_feed_plain, byte for byte, on the
+    reads fixture and chip_smoke.py's feed edge set (lengths around E,
+    min_len and 2E, N, lowercase, NUL and other bytes, short chimeras), in
+    launches of 1, 33 and all reads."""
+    _, seqs = reads
+    es, _ = chip_smoke.feed_edge_reads(np.random.default_rng(3))
+    seqs = (seqs + es)[:n]
+    codes, lens, _, _ = _rows(seqs, dev)
+    p = ts.tile_params(PipelineConfig())
+    before = ts.tile_feed.launches
+    got = ts.tile_feed(codes, lens, p)
+    torch.cuda.synchronize()
+    assert ts.tile_feed.launches == before + 1
+    want = ts.tile_feed_plain(codes.cpu(), lens.cpu(), p)
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+
+
+def test_tile_feed_kernel_rejects_other_inputs(dev):
+    p = ts.tile_params(PipelineConfig())
+    codes = torch.zeros((4 * 2 * eg.E + 16,), dtype=torch.int8, device=dev)
+    lens = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        ts.tile_feed(codes[1:1 + 3 * 2 * eg.E].view(3, -1), lens, p)
+    with pytest.raises(ValueError, match="lens"):
+        ts.tile_feed(codes[:3 * 2 * eg.E].view(3, -1), lens.long(), p)
+
+
+def test_fused_splits_equal_host_splits(dev, reads):
+    """On the card the cached pass 1 takes the fused route: its merged
+    splits (the feed's covered reads + the host tiles of the residue)
+    equal the host route's over all tiles."""
+    wl, seqs = reads
+    seqs = seqs + [synth.make_chimera(
+        np.random.default_rng(i), wl[i], wl[i + 1], cdna_len=170,
+        error_rate=0.03)["seq"] for i in range(16)]
+    quals = [b"I" * len(s) for s in seqs]
+    m = readscan.ReadScanModel(PipelineConfig(), device=dev)
+    assert m._p1f_tiles
+    before = ts.tile_feed.launches
+    out, _, tiles3 = m.finish_pass1_full(m.scan_pass1_full_async(seqs, quals))
+    assert ts.tile_feed.launches == before + 1
+    covered, need = m.tiles_fused_mask(out["true_lens"],
+                                       np.zeros(len(seqs), bool))
+    need_idx = np.nonzero(need)[0]
+    got = m.finish_tiles_merged(
+        tiles3, covered,
+        m.internal_tiles_async([seqs[i] for i in need_idx]), need_idx)
+    want = m.finish_internal_tiles(m.internal_tiles_async(seqs))
+    assert got == want
+    assert sum(bool(covered[r]) for r in got[0]) >= 10
+
+
 @pytest.mark.parametrize("B,W,m,off", chip_smoke.WIN1_EDGE_SHAPES)
 def test_win1_kernel_unaligned_spans_match_plain(dev, B, W, m, off):
     """csrc/win1.cu on rows whose data starts `off` bytes past a 16-byte

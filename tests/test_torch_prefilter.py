@@ -173,7 +173,8 @@ def test_prefilter_sweep_only_matches_jax_model(bound_models):
     """The cached pipeline's pass 2 in prefilter mode: finish_bc_sweep
     over the pass-1 windows, overflow redo included."""
     ref, port, seqs, quals = bound_models
-    _, wins = port.finish_pass1_full(port.scan_pass1_full_async(seqs, quals))
+    _, wins, _ = port.finish_pass1_full(
+        port.scan_pass1_full_async(seqs, quals))
     _, ref_wins, _ = ref.finish_pass1_full(
         ref.scan_pass1_full_async(seqs, quals))
     np.testing.assert_array_equal(wins, ref_wins)
