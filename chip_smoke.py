@@ -14,11 +14,13 @@ Phases (one JSON line each, with its seconds):
             launches of 1, 37, 129 reads and all), the whitelist sweep of
             its BC windows against 8,192 and 49,152 barcodes, the chimera
             scan over all tiles of the chunk; the tile feed over the 3p
-            chunk's rows (byte-equal to `tile_feed_plain`) and over the feed
-            edge set (feed_edge_reads: lengths around E, 315 and 608, N,
-            lowercase, NUL and other bytes, short chimeras; launches of 1,
-            37 and all), rows at an unaligned offset must raise, and the
-            chimera scan over the feed's rows of the chunk; the band aligner
+            chunk's covered reads (the fused route's index; rows
+            byte-equal to `tile_feed_plain`) and over the feed edge set
+            (feed_edge_reads: lengths around E, 315 and 608, N, lowercase,
+            NUL and other bytes, short chimeras; launches of 1, 37 and all,
+            each with the covered reads' index and with every read's),
+            rows at an unaligned offset must raise, and the chimera scan
+            over the feed's rows of the chunk; the band aligner
             over 8,192 pairs at (Lc = 512, W = 32), 8,192 at (Lc = 1,024, W
             = 64) and 256 at (Lc = 2,048, W = 64); the window search over
             the 5p adapter windows of two chunk halves [65,536, 110], the
@@ -42,20 +44,26 @@ Phases (one JSON line each, with its seconds):
             maximum, and at the aligner's gap buckets (GAP_SHAPES: Lc 64,
             128 and 256 at W 32, pairs as `GapBatcher` builds them, each its
             own molecule, with infeasible and empty ones).
-            `myers_global_pairwise` (a torch body, no kernel) is timed at a
-            large UMI group, 256 UMIs of 12 nt and 32 of 16 nt, and held to
-            its CPU run. Tolerance: exact (integer outputs; mismatches must
-            be 0). Median ms of each over >= 5 timed calls (CUDA events),
-            each call on freshly mutated content; `device_ms` is the device
-            time of a call's launches with no host time in it (CUDA events
-            around calls queued behind a spin kernel), `burst_ms` the mean
-            of back-to-back calls as the host issues them (edge scan, band
-            aligner, tile scan, window search). Beside each time stands the
-            kernel's bound on this card (see BOUNDS below); a kernel faster
-            than its bound ends the run. The composed edge body (torch ops +
-            three window searches; the route of configs outside the fused
-            kernel's envelope) is timed on the 5p chunk beside the fused
-            kernel, with a sync-timed split of one call by scan op.
+            The UMI distance matrix kernel (`myers_global_rows`) against its
+            plain version (the per-length loop over `myers_global_pairwise`)
+            on three groups (umi_groups): 256 UMIs of 12 nt and 32 of 16 nt
+            (timed), 176 of mixed lengths with N, an empty and 33-nt UMIs
+            (host rows), and 3,000 of 10-14 nt (timed); the whole group call
+            (`_pairwise_ed_device`) against the CPU's, its host us beside
+            the kernel's device_ms, and the wrapper's refusals of wrong
+            dtypes and shapes. Tolerance: exact (integer outputs; mismatches
+            must be 0). Median ms of each over >= 5 timed calls (CUDA
+            events), each call on freshly mutated content; `device_ms` is
+            the device time of a call's launches with no host time in it
+            (CUDA events around calls queued behind a spin kernel),
+            `burst_ms` the mean of back-to-back calls as the host issues
+            them (edge scan, band aligner, tile scan, window search). Beside
+            each time stands the kernel's bound on this card (see BOUNDS
+            below); a kernel faster than its bound ends the run. The
+            composed edge body (torch ops + three window searches; the route
+            of configs outside the fused kernel's envelope) is timed on the
+            5p chunk beside the fused kernel, with a sync-timed split of one
+            call by scan op.
   pipeline  `ScanFastqPipeline.run` on `cuda` over a synthetic run of
             131,072 reads in 4 fastq files (8,192 cells drawn from a
             65,536-barcode whitelist; 4% error, ~6% 2-8 kb reads, ~2%
@@ -141,14 +149,15 @@ Phases (one JSON line each, with its seconds):
             the rest of 1-8 molecules at 1-4 reads (chain_genome,
             chain_reads). Launch counts are zeroed before each step and read
             after it: the aligner and computeconsensus must launch the band
-            kernel, assignumis `myers_global_pairwise` on the card, no plain
-            body may run. Reads/s of align, records/s of assignumis, a
-            split of both (timers around the methods, a device sync around
-            the device parts), which native host codecs the aligner took,
-            and the shares of primary records inside their true gene and
-            carrying it as GE (CHAIN_MIN_SHARE). Its CUDA == CPU parity on a
-            subset of about 1,024 reads is split: the `run` phase's subset
-            run covers Steps 1-3, and `steps_4b_parity` Step 4b.
+            kernel, assignumis the pairwise kernel once a batched group (the
+            recorded `_pairwise_ed_device` calls), no plain body may run.
+            Reads/s of align, records/s of assignumis, a split of both
+            (timers around the methods, a device sync around the device
+            parts), which native host codecs the aligner took, and the
+            shares of primary records inside their true gene and carrying it
+            as GE (CHAIN_MIN_SHARE). Its CUDA == CPU parity on a subset of
+            about 1,024 reads is split: the `run` phase's subset run covers
+            Steps 1-3, and `steps_4b_parity` Step 4b.
   run       the workflow through the port's CLI in this process (`python -m
             sicelore_tpu_torch run -b 2 --nativeAlign --collapse --device
             cuda`, run_workflow) over the chained phase's genome, refFlat,
@@ -156,12 +165,13 @@ Phases (one JSON line each, with its seconds):
             assignumis -> barcodes -> isoformmatrix (with the isobam) ->
             collapsemodel. Launch counts are zeroed just before and read
             just after: the edge scan, the sweep, the tile feed, the tile
-            scan, the band kernel and `myers_global_pairwise` on the card
-            must have launched, no plain body, composed edge body or window
-            search. The edge launches made with 5p parameters are counted
-            apart (the kernels line's `launches_run_5p`). Each stage's
-            seconds (from the stage lines `run` prints), align reads/s, the
-            gene matrix's genes and cells and the shares of chain_truth.
+            scan, the band kernel and the pairwise kernel (once a batched
+            group) on the card must have launched, no plain body, composed
+            edge body or window search. The edge launches made with 5p
+            parameters are counted apart (the kernels line's
+            `launches_run_5p`). Each stage's seconds (from the stage lines
+            `run` prints), align reads/s, the gene matrix's genes and cells
+            and the shares of chain_truth.
             Then `run ... --consensus` on the parity subset on `cuda` and on
             `cpu` (the consensus stage runs the host engine, as the
             reference package's `run` does): every file byte-identical; then
@@ -248,8 +258,12 @@ Operation counts, from the kernels' own arithmetic:
     from tlen), and the [3, T] int32 output.
   tilefeed: no operations worth a bound (it moves bytes): bytes only, the
     code bytes its covered reads' tiles need (L of each read with 315 < L
-    <= 608: its first min(L, E) and its last L - E columns), 4 a read of
-    lens and the [B, 528] output rows.
+    <= 608: its first min(L, E) and its last L - E columns), 4 a covered
+    read of index and 4 of its length, and the [C, 528] output rows of
+    the C covered reads.
+  pairwise: a (pattern row of 1..32 nt, text) pair is tlens[j] global
+    Myers columns of 18 (pairwise_work); bytes: Peq, lengths and codes of
+    the group read once, the [K, K] int32 matrix written once.
   win1: windows x columns x 18; the kernel's column step takes more
     instructions than that (the Myers step, its two match-mask lookups
     a pair of columns and the keyed best), so 18 stays the count.
@@ -260,7 +274,8 @@ Operation counts, from the kernels' own arithmetic:
     bookkeeping, shuffles and the traceback (1/W of the cells) are not
     counted; clen is this run's, not Lc (at the gap shapes, each pair's
     own ref segment).
-No PyTorch call computes any of the six functions: `library_ms` is null.
+No PyTorch call computes any of the seven functions: `library_ms` is
+null.
 """
 from __future__ import annotations
 
@@ -449,6 +464,18 @@ def bound(n_bytes: int, n_ops: int, int32_hz: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(n_bytes), "operations": int(n_ops)}
+
+
+def covered_index(lens, p, dev):
+    """The fused route's feed index of a chunk: the reads with min_len < L
+    <= 2E (`feed_covered`), int32 [C] on `dev`, as
+    `ReadScanModel.scan_pass1_full_async` builds it."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.ops import tilescan_cuda as ts
+    idx = np.nonzero(ts.feed_covered(np.asarray(lens), p))[0]
+    return torch.from_numpy(idx.astype(np.int32)).to(dev)
 
 
 def tile_scan_work(rows, p) -> tuple[int, int, int]:
@@ -724,6 +751,124 @@ def host_us(fn, calls: int = HOST_CALLS) -> float:
 def wrapper_host_us(dev) -> dict:
     """host_us of each of host_calls(dev)."""
     return {name: host_us(fn) for name, fn in host_calls(dev).items()}
+
+
+def umi_groups(seed=SEED + 900) -> dict:
+    """The UMI groups of the pairwise kernel phase: {name: [UMI bytes]}.
+    "g288": UMI_GROUP (256 of 12 nt, 32 of 16 nt), the timing group;
+    "mixed": 160 UMIs of 10-14 nt, some with N, some equal but for an N,
+    an empty UMI and UMIs of 33 nt (rows the host fills); "g3000": 3,000
+    UMIs of 10-14 nt (a group at the single-link threshold)."""
+    import numpy as np
+
+    from sicelore_tpu_torch.utils import dna
+    rng = np.random.default_rng(seed)
+
+    def rand(n, lo, hi):
+        return [dna.decode(rng.integers(0, 4, int(rng.integers(lo, hi + 1))))
+                .encode() for _ in range(n)]
+
+    mixed = rand(160, 10, 14)
+    mixed += [u[:4] + b"N" + u[5:] for u in mixed[:12]]
+    mixed += [b"", b"ACGTN" * 6 + b"ACG", b"ACGT" * 8 + b"G", b"NNNNNNNNNN"]
+    return {"g288": [u for m, n in UMI_GROUP for u in rand(n, m, m)],
+            "mixed": list(dict.fromkeys(mixed)),
+            "g3000": rand(3_000, 10, 14)}
+
+
+def pairwise_work(mlens, tlens) -> tuple[int, int]:
+    """(operations, bytes) of one group's matrix: every pair of a pattern
+    row of 1..32 nt and a text is tlens[j] global Myers columns (MYERS_OPS
+    each); bytes: the inputs (Peq 16, mlens 4, the texts' codes, tlens 4 a
+    UMI) read once and the [K, K] int32 matrix written once."""
+    import numpy as np
+    ml, tl = np.asarray(mlens), np.asarray(tlens)
+    K = len(ml)
+    rows = int(((ml >= 1) & (ml <= 32)).sum())
+    return (rows * int(tl.sum()) * MYERS_OPS,
+            24 * K + int(tl.sum()) + 4 * K * K)
+
+
+def pairwise_phase(dev, int32_hz) -> dict:
+    """csrc/pairwise.cu against its plain version (the per-length loop
+    over `myers_global_pairwise`) on the card, element for element, on the
+    umi_groups, each with variants of fresh content (one base of each UMI
+    replaced); times of the timing group and of the 3,000-UMI group; the
+    wrapper's host us, and the host us of one whole group call
+    (`umicluster._pairwise_ed_device`: Peq build, one upload, one launch,
+    one download) beside the kernel's device_ms; the wrapper's checks.
+    Returns {result key: entry}."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.core import umicluster
+    from sicelore_tpu_torch.ops import editdist
+    from sicelore_tpu_torch.utils import dna
+    rng = np.random.default_rng(SEED + 950)
+
+    def inputs(umis):
+        L = max(1, max(len(u) for u in umis))
+        tx, tl = dna.encode_batch(umis, L)
+        ml = np.fromiter((len(u) for u in umis), np.int32, len(umis))
+        peq = editdist.build_peq(tx[:, :min(L, 32)])
+        return editdist.pairwise_inputs(peq, ml, tx, tl, dev), ml, tl
+
+    def variant(umis):
+        out = []
+        for u in umis:
+            if u:
+                c = int(rng.integers(0, len(u)))
+                u = u[:c] + b"ACGT"[int(rng.integers(0, 4)):][:1] + u[c + 1:]
+            out.append(u)
+        return inputs(out)[0]
+
+    res = {}
+    for name, umis in umi_groups().items():
+        args, ml, tl = inputs(umis)
+        vars_ = [args] + [variant(umis) for _ in range(TIMED_CALLS)]
+        key = f"pairwise_{name}"
+        res[key] = compare(key, lambda a: editdist.myers_global_rows(*a),
+                           lambda a: editdist.myers_global_rows_plain(*a),
+                           vars_)
+        ops, nb = pairwise_work(ml, tl)
+        res[key].update(bound(nb, ops, int32_hz))
+        res[key].update({"umis": len(umis), "columns": int(args[2].shape[1]),
+                         "host_rows": int(((ml == 0) | (ml > 32)).sum()),
+                         "lengths": sorted(set(ml.tolist()))})
+        if name != "mixed":
+            res[key]["device_ms"] = device_ms(
+                lambda a: editdist.myers_global_rows(*a), vars_[1:])
+            res[key]["burst_ms"] = burst_ms(
+                lambda a: editdist.myers_global_rows(*a), vars_[1:])
+        # the whole group call against the host's myers_ed rows
+        d = umicluster._pairwise_ed_device(umis, dev)
+        want = umicluster._pairwise_ed_device(umis, "cpu")
+        res[key]["mismatches"] += int((d != want).sum())
+        if name == "mixed":
+            hi = [i for i, u in enumerate(umis) if not 1 <= len(u) <= 32]
+            res[key]["mismatches"] += sum(
+                int(d[i, j] != umicluster.myers_ed(umis[i], umis[j]))
+                for i in hi for j in range(len(umis)))
+        del vars_
+    g = umi_groups()["g288"]
+    args = inputs(g)[0]
+    res["pairwise_g288"]["wrapper_host_us"] = host_us(
+        lambda: editdist.myers_global_rows(*args))
+    res["pairwise_g288"]["group_call_us"] = host_us(
+        lambda: umicluster._pairwise_ed_device(g, dev), 200)
+    # the wrapper refuses what the kernel does not take
+    refused = 0
+    for bad in ((args[0].to(torch.int64),) + args[1:],
+                args[:2] + (args[2].to(torch.int32), args[3]),
+                (args[0][:, :-1],) + args[1:],
+                args[:2] + (args[2][:, :0], args[3])):
+        try:
+            editdist.myers_global_rows(*bad)
+        except ValueError:
+            refused += 1
+    res["pairwise_g288"]["refused"] = refused
+    res["pairwise_g288"]["mismatches"] += 4 - refused
+    return res
 
 
 def nbytes(*tensors) -> int:
@@ -1500,9 +1645,10 @@ def chain_truth(aligned_bam, tagged_bam, genes):
 
 
 def path_counters():
-    """{name: function} of every launch counter: the six kernel wrappers,
-    the composed edge body, myers_global_pairwise, and the plain bodies
-    (keys starting "plain_")."""
+    """{name: function} of every launch counter: the seven kernel wrappers,
+    the composed edge body, the plain bodies (keys starting "plain_"), and
+    myers_global_pairwise, the torch body the pairwise kernel's plain
+    version calls once a pattern length."""
     from sicelore_tpu_torch.ops import bcsearch, editdist, poa_cuda
     from sicelore_tpu_torch.ops import edgescan as eg
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
@@ -1510,6 +1656,7 @@ def path_counters():
     return {"edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
             "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan,
             "win1": editdist.myers_win1, "bandalign": poa_cuda.band_align,
+            "pairwise": editdist.myers_global_rows,
             "edge_composed": eg.edge_scan2_composed,
             "myers_global_pairwise": editdist.myers_global_pairwise,
             "plain_edgescan": eg.edge_scan2_plain,
@@ -1518,7 +1665,15 @@ def path_counters():
             "plain_tilescan": ts.tile_scan_plain,
             "plain_win1": editdist.myers_win1_plain,
             "plain_bandalign": poa_cuda.band_align_plain,
+            "plain_pairwise": editdist.myers_global_rows_plain,
             "plain_consensus_votes": poa_cuda.consensus_votes_plain}
+
+
+# the launch counters that mean a plain body ran (on the card: none may)
+def plain_bodies(launches: dict) -> dict:
+    return {k: v for k, v in launches.items()
+            if k.startswith("plain_") or k in ("edge_composed", "win1",
+                                               "myers_global_pairwise")}
 
 
 class ShardLaunches:
@@ -1831,11 +1986,12 @@ def workflow_phase(device, cdir, ref, refflat, wl, genes, n_sub):
     if min(ln.get(k, 0) for k in ("edgescan", "bcsweep", "tilefeed",
                                   "tilescan", "bandalign")) < 1:
         bad.append("run did not launch its kernels")
-    if ln.get("myers_global_pairwise", 0) < 1 or \
+    if ln.get("pairwise", 0) < 1 or ln["pairwise"] != len(ed_calls) or \
             {d for d, _ in ed_calls} != {device}:
-        bad.append("run's assignumis ran no batched distance on the card")
-    plain = {k: v for k, v in ln.items()
-             if k.startswith("plain_") or k in ("edge_composed", "win1")}
+        bad.append(f"run's assignumis launched the pairwise kernel "
+                   f"{ln.get('pairwise', 0)} times for {len(ed_calls)} "
+                   f"batched groups")
+    plain = plain_bodies(ln)
     if plain:
         bad.append(f"plain bodies ran: {plain}")
     if (n_prim < 0.95 * passed_reads
@@ -1971,7 +2127,7 @@ def _run(pool, wl, cells, work, dev) -> int:
                               ).splitlines()[-1] if nvcc else None
     _build.build_all()
     for stem in ("edgescan", "bcsweep", "tilefeed", "tilescan", "bandalign",
-                 "win1"):
+                 "win1", "pairwise"):
         _build.load(stem)
     emit({"phase": "env", "nvidia_smi": smi, "max_sm_mhz": sm_hz / 1e6,
           "sms": sms,
@@ -2199,37 +2355,44 @@ def _run(pool, wl, cells, work, dev) -> int:
              != ts.tile_scan_plain(r, tp)).sum())
         for r in (edge_rows, edge_rows[6:7].clone(), edge_rows[1:2].clone()))}
 
-    # the tile feed over the chunk's reads (the fused route's rows, fresh
-    # content each call), its edge set in launches of 1, 37 and all, rows
-    # at an unaligned offset, and the chimera scan over what it writes
+    # the tile feed over the chunk's covered reads (the fused route's
+    # index and rows, fresh content each call), its edge set in launches of
+    # 1, 37 and all (every read's index, covered or not), rows at an
+    # unaligned offset, and the chimera scan over what it writes
     fvars = [codes] + [mutate_reads(codes, lens_d)
                        for _ in range(TIMED_CALLS)]
+    cov_d = covered_index(lens, tp, dev)
+    n_cov = int(cov_d.shape[0])
     results["tilefeed"] = compare(
-        "tilefeed", lambda c: ts.tile_feed(c, lens_d, tp),
-        lambda c: ts.tile_feed_plain(c, lens_d, tp), fvars)
-    covered = ts.feed_covered(lens_d.long(), tp)
+        "tilefeed", lambda c: ts.tile_feed(c, lens_d, cov_d, tp),
+        lambda c: ts.tile_feed_plain(c, lens_d, cov_d, tp), fvars)
     results["tilefeed"].update(bound(
-        int(lens_d.long()[covered].sum()) + 4 * B + ts.ROW_BYTES * B, 0,
-        int32_hz))
-    results["tilefeed"].update({"reads": B, "covered": int(covered.sum())})
+        int(lens_d.long()[cov_d.long()].sum()) + 2 * 4 * n_cov
+        + ts.ROW_BYTES * n_cov, 0, int32_hz))
+    results["tilefeed"].update({"reads": B, "covered": n_cov})
     results["tilefeed"]["device_ms"] = device_ms(
-        lambda c: ts.tile_feed(c, lens_d, tp), fvars[1:])
+        lambda c: ts.tile_feed(c, lens_d, cov_d, tp), fvars[1:])
     results["tilefeed"]["burst_ms"] = burst_ms(
-        lambda c: ts.tile_feed(c, lens_d, tp), fvars[1:])
+        lambda c: ts.tile_feed(c, lens_d, cov_d, tp), fvars[1:])
     del fvars
     fseqs, fquals = feed_edge_reads(np.random.default_rng(SEED + 1000))
     fc_np, _, fl_np, _ = eg.encode_two_half(fseqs, fquals)
     feed_set = {}
     for n in (1, 37, len(fseqs)):
-        got = ts.tile_feed(torch.from_numpy(fc_np[:n]).to(dev),
-                           torch.from_numpy(fl_np[:n]).to(dev), tp)
-        ref = ts.tile_feed_plain(torch.from_numpy(fc_np[:n]),
-                                 torch.from_numpy(fl_np[:n]), tp)
-        feed_set[f"b{n}"] = int((got.cpu() != ref).sum())
+        for tag, ix in (("cov", covered_index(fl_np[:n], tp, "cpu")),
+                        ("all", torch.arange(n, dtype=torch.int32))):
+            got = ts.tile_feed(torch.from_numpy(fc_np[:n]).to(dev),
+                               torch.from_numpy(fl_np[:n]).to(dev),
+                               ix.to(dev), tp)
+            ref = ts.tile_feed_plain(torch.from_numpy(fc_np[:n]),
+                                     torch.from_numpy(fl_np[:n]), ix, tp)
+            feed_set[f"b{n}_{tag}"] = int((got.cpu() != ref).sum()) \
+                if got.shape == ref.shape else got.numel() + 1
     buf = torch.zeros(2 * 2 * eg.E + 16, dtype=torch.int8, device=dev)
     try:
         ts.tile_feed(buf[1:1 + 2 * 2 * eg.E].view(2, -1),
-                     torch.zeros(2, dtype=torch.int32, device=dev), tp)
+                     torch.zeros(2, dtype=torch.int32, device=dev),
+                     torch.zeros(1, dtype=torch.int32, device=dev), tp)
         unaligned_raises = False
     except ValueError:
         unaligned_raises = True
@@ -2237,17 +2400,17 @@ def _run(pool, wl, cells, work, dev) -> int:
         "mismatches": sum(feed_set.values()) + (not unaligned_raises),
         "cases": feed_set, "reads": len(fseqs),
         "unaligned_raises": unaligned_raises}
-    frows = ts.tile_feed(codes, lens_d, tp)
+    frows = ts.tile_feed(codes, lens_d, cov_d, tp)
     svars = [frows] + [mutate_tiles(frows) for _ in range(TIMED_CALLS)]
     words_f, sites_f, bytes_f = tile_scan_work(frows, tp)
     results["tilescan_fed"] = compare(
         "tilescan_fed", lambda r: ts.tile_scan(r, tp),
         lambda r: ts.tile_scan_plain(r, tp), svars)
     results["tilescan_fed"].update(bound(
-        bytes_f + 3 * B * 4,
+        bytes_f + 3 * n_cov * 4,
         words_f * TILE_WORD_OPS + sites_f * ts.WI_CONFIRM * MYERS_OPS,
         int32_hz))
-    results["tilescan_fed"].update({"tiles": B, "words": words_f,
+    results["tilescan_fed"].update({"tiles": n_cov, "words": words_f,
                                     "sites": sites_f})
     results["tilescan_fed"]["device_ms"] = device_ms(
         lambda r: ts.tile_scan(r, tp), svars[1:])
@@ -2428,28 +2591,10 @@ def _run(pool, wl, cells, work, dev) -> int:
             "device_ms": device_ms(gap_call, gvars[1:]),
             "burst_ms": burst_ms(gap_call, gvars[1:])})
         del reads_d, rl_d, mids_d, cmol_d, clm_d, gvars
-    # the batched UMI distances at a large group: 256 UMIs of 12 nt and a
-    # class of 32 of 16 nt against all 288 texts (not a Pallas kernel: one
-    # torch body on both devices; CUDA is held to the CPU)
-    urng = np.random.default_rng(SEED + 900)
-    umis = [dna.decode(urng.integers(0, 4, m)).encode()
-            for m, n in UMI_GROUP for _ in range(n)]
-    tx_np, tl_np = dna.encode_batch(umis, max(m for m, _ in UMI_GROUP))
-    tx_d = torch.from_numpy(tx_np[None]).to(dev)
-    tl_d = torch.from_numpy(tl_np.astype(np.int32)[None]).to(dev)
-    mgp, first = {}, 0
-    for m, n in UMI_GROUP:
-        peq = editdist.build_peq(tx_np[first:first + n, :m])[None]
-        first += n
-        ms, outs = timed(lambda _: editdist.myers_global_pairwise(
-            peq, tx_d, tl_d, m), [None] * TIMED_CALLS,
-            torch.cuda.synchronize)
-        cpu = editdist.myers_global_pairwise(peq, tx_d.cpu(), tl_d.cpu(), m)
-        mgp[f"m{m}"] = {"patterns": n, "texts": len(umis), "ms": ms,
-                        "mismatches": int((outs[0].cpu() != cpu).sum())}
-    results["myers_global_pairwise"] = {
-        "mismatches": sum(v["mismatches"] for v in mgp.values()),
-        "held_against": "the same torch body on the CPU", **mgp}
+    # the UMI distance matrix kernel at the groups assignumis gives it: the
+    # timing group (256 UMIs of 12 nt and 32 of 16 nt), one of mixed
+    # lengths with N, an empty and a 33-nt UMI (host rows), one of 3,000
+    results.update(pairwise_phase(dev, int32_hz))
     # pairs the regrouped kernel could get wrong: P not a multiple of the
     # pairs a warp holds, infeasible pairs, paths along the band's edge,
     # empty reads, a center of length 0
@@ -3031,17 +3176,20 @@ def _run(pool, wl, cells, work, dev) -> int:
         "consensus": cons, "primary_records": n_prim,
         "true_gene_share": n_map / max(n_prim, 1),
         "ge_share": n_ge / max(n_prim, 1), "data_s": round(gen_s, 2)}
-    plain = {k: v for st in steps.values() for k, v in st["launches"].items()
-             if k.startswith("plain_") or k in ("edge_composed", "win1")}
+    plain = {k: v for st in steps.values()
+             for k, v in plain_bodies(st["launches"]).items()}
     bad = []
     if min(steps["scanfastq"]["launches"].get(k, 0)
            for k in ("edgescan", "bcsweep", "tilescan")) < 1:
         bad.append("scanfastq did not launch its kernels")
     if al["launches"].get("bandalign", 0) < 1:
         bad.append("the aligner did not launch band_align")
-    if um["launches"].get("myers_global_pairwise", 0) < 1 or \
+    if um["launches"].get("pairwise", 0) < 1 or \
+            um["launches"]["pairwise"] != len(ed_calls) or \
             {d for d, _ in ed_calls} != {"cuda"}:
-        bad.append("assignumis ran no batched distance on the card")
+        bad.append(f"assignumis launched the pairwise kernel "
+                   f"{um['launches'].get('pairwise', 0)} times for "
+                   f"{len(ed_calls)} batched groups")
     if steps["computeconsensus"]["launches"].get("bandalign", 0) < 1:
         bad.append("computeconsensus did not launch band_align")
     if plain:
@@ -3056,6 +3204,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     if bad:
         raise SystemExit(f"steps_1_to_4b: {bad}")
     launches["bandalign_align"] = al["launches"]["bandalign"]
+    launches["pairwise"] = um["launches"]["pairwise"]
 
     # ---- run: the workflow through the port's CLI on the chained
     # phase's genome, refFlat, whitelist and reads; its subset run on cuda
@@ -3096,7 +3245,7 @@ def _run(pool, wl, cells, work, dev) -> int:
           "s": round(time.time() - t0, 2)})
     if pre.returncode or sorted(pre_ms) != sorted(
             ("edgescan", "bcsweep", "tilefeed", "tilescan", "win1",
-             "bandalign")) or \
+             "bandalign", "pairwise")) or \
             min(pre_ms.values()) <= 0:
         raise SystemExit(f"precompile: rc {pre.returncode}, {pre_ms}")
 
@@ -3115,7 +3264,11 @@ def _run(pool, wl, cells, work, dev) -> int:
                          "sicelore_tpu/ops/poa_tpu.py:251",
                          "bandalign_512_32"),
            "win1": ("sicelore_tpu_torch/csrc/win1.cu",
-                    "sicelore_tpu/ops/editdist.py:265", "win1")}
+                    "sicelore_tpu/ops/editdist.py:265", "win1"),
+           # not a Pallas kernel: the jitted scan the JAX route runs
+           "pairwise": ("sicelore_tpu_torch/csrc/pairwise.cu",
+                        "sicelore_tpu/ops/editdist.py:210",
+                        "pairwise_g288")}
     # the window search runs on the control path (the 3p and 5p runs take
     # the fused edge kernel): the control run's count
     launches["win1"] = launches_c["win1"]
@@ -3252,6 +3405,27 @@ def _run(pool, wl, cells, work, dev) -> int:
                               f"pairs_gap_{Lc}_{W}": o["pairs"]})
                 entry["max_abs_err"] = max(entry["max_abs_err"],
                                            o["max_abs_err"])
+        if name == "pairwise":
+            # launches: the chained phase's assignumis (one a batched
+            # group); the 3,000-UMI group beside the timing group
+            o = results["pairwise_g3000"]
+            entry.update({"umis": r["umis"], "device_ms": r["device_ms"],
+                          "burst_ms": r["burst_ms"],
+                          "wrapper_host_us": r["wrapper_host_us"],
+                          "group_call_us": r["group_call_us"],
+                          "batched_groups_chain": chain["device_ed_calls"],
+                          "batched_groups_run": run_ph["device_ed_calls"],
+                          "ms_g3000": o["ms"],
+                          "device_ms_g3000": o["device_ms"],
+                          "burst_ms_g3000": o["burst_ms"],
+                          "plain_ms_g3000": o["plain_ms"],
+                          "bound_ms_g3000": o["bound_ms"],
+                          "bound_by_g3000": o["bound_by"],
+                          "edge_case_mismatches":
+                              results["pairwise_mixed"]["mismatches"]})
+            entry["max_abs_err"] = max(
+                entry["max_abs_err"], o["max_abs_err"],
+                results["pairwise_mixed"]["max_abs_err"])
         if name == "win1":
             entry.update({"windows": r["windows"], "columns": r["columns"],
                           "device_ms": r["device_ms"],
@@ -3307,10 +3481,11 @@ def _run(pool, wl, cells, work, dev) -> int:
                       "run_stage_s": run_ph["stage_s"],
                       "run_align_reads_per_s": run_ph["align_reads_per_s"],
                       "chain_split_s": chain["split_s"],
-                      "myers_global_pairwise_ms": {
-                          k: v["ms"] for k, v in
-                          results["myers_global_pairwise"].items()
-                          if isinstance(v, dict)},
+                      "pairwise_device_ms": {
+                          k: results[f"pairwise_{k}"]["device_ms"]
+                          for k in ("g288", "g3000")},
+                      "pairwise_group_call_us":
+                          results["pairwise_g288"]["group_call_us"],
                       "build_s": _build.build_seconds,
                       "script_s": round(time.time() - T_START, 1)}})
     emit({"kernels": kernels})

@@ -6,16 +6,17 @@ nothing imports it.
     python3 kernel_variants.py win1     # window search: threads a block
     python3 kernel_variants.py tile     # tile scan: block shape, general path
     python3 kernel_variants.py edge     # edge scan: parts, general path, reads a block
+    python3 kernel_variants.py feed     # tile feed: group size, blocks an SM
     python3 kernel_variants.py host [--root DIR]   # wrappers' host time
 
-band, win1, tile and edge build a copy of csrc/<kernel>.cu once a variant, the
-variant made by exact text replacement (and nvcc -D flags), so an edit of
-the kernel that moves a patched line makes this script fail loudly instead
-of timing something else; all nvcc runs go in parallel. Every variant of
-win1 and tile computes the kernel's results and is checked against the
-plain version first. Times: ms a launch, the least of three bursts of
-REPS launches between two CUDA events; the base variant runs first and
-again last (the least of both). One JSON line a shape: {"shape", "ms":
+band, win1, tile, edge and feed build a copy of csrc/<kernel>.cu once a
+variant, the variant made by exact text replacement (and nvcc -D flags), so
+an edit of the kernel that moves a patched line makes this script fail
+loudly instead of timing something else; all nvcc runs go in parallel. Every
+variant of win1 and tile computes the kernel's results and is checked
+against the plain version first. Times: ms a launch, the least of three
+bursts of REPS launches between two CUDA events; the base variant runs first
+and again last (the least of both). One JSON line a shape: {"shape", "ms":
 {variant: ms}}.
 
 band: bandalign.cu with one part compiled out each, so these variants
@@ -50,6 +51,12 @@ norun (the longest run's counter off: Myers alone in that pass), nobail
 first 3p and 5p chunks (32,768 reads each), in three copies that launches
 rotate through (more than the L2 holds).
 
+feed: tilefeed.cu with 16 reads a group and 4 blocks an SM (base) or
+other shapes (r<reads>_b<blocks>; fewer blocks an SM give each block more
+groups to pipeline), checked against the plain version first. Over the
+covered reads of chip_smoke.py's first 3p chunk (its fused route's index),
+in three copies of the codes that launches rotate through.
+
 host: chip_smoke.py's `host_us` of each of its `host_calls` (one
 `myers_win1`, one `tile_scan`, one 3p and one 5p `edge_scan2` call) against
 the `sicelore_tpu_torch` under --root (default: this checkout; a tree whose
@@ -57,7 +64,7 @@ edge scan takes text-major [2E, B] codes gets its read transposed). To compare t
 other into a directory that .gitignore lists (`git archive`) and run this
 once with --root there and once without, in one command.
 
-Needs a CUDA GPU (and nvcc for band, win1, tile, edge)."""
+Needs a CUDA GPU (and nvcc for band, win1, tile, edge, feed)."""
 from __future__ import annotations
 
 import argparse
@@ -183,6 +190,19 @@ EDGE_VARIANTS = {
     "nobail": ([], ["-DKNOB_NOBAIL"]),
 }
 EDGE_EXACT = ("base", "general", "nr32")
+
+
+FEED_RPB = "constexpr int RPB = 16;"
+FEED_BPS = "constexpr int BLOCKS_PER_SM = 4;"
+
+
+def _feed_shape(rpb, bps):
+    return [(FEED_RPB, f"constexpr int RPB = {rpb};"),
+            (FEED_BPS, f"constexpr int BLOCKS_PER_SM = {bps};")]
+
+
+FEED_VARIANTS = {"base": [], **{f"r{r}_b{b}": _feed_shape(r, b) for r, b in (
+    (16, 2), (16, 8), (8, 8), (8, 16), (32, 4), (32, 8))}}
 
 
 def patched(src: str, reps) -> str:
@@ -436,6 +456,43 @@ def run_tile() -> None:
             fns, launch, check, copies)}), flush=True)
 
 
+def run_feed() -> None:
+    import torch
+
+    import chip_smoke
+    from sicelore_tpu_torch.ops import _build
+    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import tilescan_cuda as ts
+    from sicelore_tpu_torch.utils.config import PipelineConfig
+    fns = build("tilefeed", {k: (r, []) for k, r in FEED_VARIANTS.items()},
+                "tilefeed_launch", 4, 4)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = _build.stream_handle(dev)
+    tp = ts.tile_params(PipelineConfig())
+    chunk = chunk_reads()
+    codes, _, lens, _ = eg.encode_two_half(chunk.seqs, chunk.quals)
+    B = codes.shape[0]
+    ld = torch.from_numpy(lens).to(dev)
+    idx = chip_smoke.covered_index(lens, tp, dev)
+    C = idx.shape[0]
+    copies = [torch.from_numpy(codes).to(dev) for _ in range(3)]
+    ref = ts.tile_feed_plain(copies[0], ld, idx, tp)
+    res = torch.empty_like(ref)
+
+    def launch(k, c):
+        _build.check(fns[k](c.data_ptr(), ld.data_ptr(), idx.data_ptr(),
+                            res.data_ptr(), B, C, tp.edge, tp.k, stream), k)
+
+    def check(k):
+        res.zero_()
+        launch(k, copies[0])
+        if not torch.equal(res, ref):
+            raise SystemExit(f"kernel_variants: feed {k} differs from the "
+                             f"plain version")
+    print(json.dumps({"shape": ["covered", C, B], "ms": in_turns(
+        fns, launch, check, copies)}), flush=True)
+
+
 def run_host(root: Path) -> None:
     import torch
 
@@ -460,7 +517,8 @@ def run_host(root: Path) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("band", "win1", "tile", "edge", "host"))
+    ap.add_argument("what", choices=("band", "win1", "tile", "edge", "feed",
+                                     "host"))
     ap.add_argument("--root", default=str(HERE),
                     help="host: the checkout whose package is timed")
     a = ap.parse_args()
@@ -473,7 +531,7 @@ def main() -> int:
         run_host(Path(a.root).resolve())
     else:
         {"band": run_band, "win1": run_win1, "tile": run_tile,
-         "edge": run_edge}[a.what]()
+         "edge": run_edge, "feed": run_feed}[a.what]()
     return 0
 
 

@@ -18,12 +18,12 @@ and Jar/config.xml:244-278):
 
 Edit distances use scalar Myers bit-parallel (host) for small groups; groups
 of DEVICE_ED_THRESHOLD unique UMIs or more batch through
-ops.editdist.myers_global_pairwise on the given device (the card, or the
-same torch body on the CPU). The route is chosen by the unique-UMI count
-and never by the device, and each row is filled by the same route as in
-the JAX package: the host rows compare bytes (N matches N), the batched
-rows compare codes (N matches nothing), so a group's matrix is the same on
-both devices and in both packages.
+ops.editdist.myers_global_rows on the given device (csrc/pairwise.cu on the
+card, one launch a group; its plain torch body on the CPU). The route is
+chosen by the unique-UMI count and never by the device, and each row is
+filled by the same route as in the JAX package: the host rows compare bytes
+(N matches N), the batched rows compare codes (N matches nothing), so a
+group's matrix is the same on both devices and in both packages.
 """
 from __future__ import annotations
 
@@ -74,8 +74,8 @@ def pairwise_ed(umis: list[bytes], use_device: bool | None = None,
     """[K, K] Levenshtein matrix (int32).
 
     Small groups run scalar Myers on the host; from DEVICE_ED_THRESHOLD
-    unique UMIs the batched route runs on `device` in pattern-length
-    classes (the analog of the jar's DistanceMatrix). `use_device` forces
+    unique UMIs the batched route runs on `device`, all pattern lengths
+    at once (the analog of the jar's DistanceMatrix). `use_device` forces
     the route either way."""
     K = len(umis)
     if use_device is None:
@@ -90,12 +90,11 @@ def pairwise_ed(umis: list[bytes], use_device: bool | None = None,
 
 
 def _pairwise_ed_device(umis: list[bytes], device="cuda") -> np.ndarray:
-    """Batched route: for each distinct pattern length 1 <= m <= 32, the
-    global ED of all length-m patterns against ALL texts in one
-    myers_global_pairwise call; rows of length 0 or over 32 take the host
-    myers_ed. Texts upload once, each class's rows download once."""
-    import torch
-
+    """Batched route: the global ED of every UMI of 1 <= m <= 32 nt (as a
+    pattern) against ALL UMIs (as texts), every length class in one
+    myers_global_rows call (on the card: one upload, one csrc/pairwise.cu
+    launch, one download a group); rows of length 0 or over 32 take the
+    host myers_ed."""
     from sicelore_tpu_torch.ops import editdist
     from sicelore_tpu_torch.utils import dna
 
@@ -103,22 +102,14 @@ def _pairwise_ed_device(umis: list[bytes], device="cuda") -> np.ndarray:
     K = len(umis)
     L = max(1, max(len(u) for u in umis))
     texts, tlens = dna.encode_batch(umis, L)
-    tx = torch.from_numpy(np.ascontiguousarray(texts)[None]).to(dev)
-    tl = torch.from_numpy(np.asarray(tlens, np.int32)[None]).to(dev)
-    d = np.zeros((K, K), dtype=np.int32)
-    by_len: dict[int, list[int]] = {}
-    for i, u in enumerate(umis):
-        by_len.setdefault(len(u), []).append(i)
-    for m, idxs in by_len.items():
-        if m == 0 or m > 32:
-            for i in idxs:
-                for j in range(K):
-                    d[i, j] = myers_ed(umis[i], umis[j])
-            continue
-        codes = np.stack([dna.encode(umis[i]) for i in idxs]).astype(np.int8)
-        peq = editdist.build_peq(codes)
-        out = editdist.myers_global_pairwise(peq[None], tx, tl, m)
-        d[idxs, :] = out[0].cpu().numpy()
+    mlens = np.fromiter((len(u) for u in umis), np.int32, K)
+    # a row's codes past its length are PAD, which sets no Peq bit
+    peq = editdist.build_peq(texts[:, :min(L, 32)])
+    d = editdist.myers_global_rows(*editdist.pairwise_inputs(
+        peq, mlens, texts, tlens, dev)).cpu().numpy()
+    for i in np.nonzero((mlens == 0) | (mlens > 32))[0]:
+        for j in range(K):
+            d[i, j] = myers_ed(umis[i], umis[j])
     return d
 
 

@@ -1,5 +1,6 @@
 // Shared device helpers of the scan kernels: base codes, Peq selection and
-// the Hyyro/Myers bit-parallel column update (semi-global search variant).
+// the Hyyro/Myers bit-parallel column update (the semi-global search and
+// the global distance).
 //
 // Base codes are int8 A,C,G,T,N,PAD = 0..5 (sicelore_tpu/utils/dna.py).
 // N and PAD select an all-zero match mask, so they never match a pattern
@@ -22,21 +23,39 @@ struct Peq4 {
   }
 };
 
-// One column of the Myers search for a pattern of length m (hibit = m-1);
-// the horizontal carry-in is 0: free text start.
-__device__ __forceinline__ void myers_step(unsigned eq, unsigned& PV,
-                                           unsigned& MV, int& score,
-                                           int hibit) {
+// One column of the Myers recurrence for a pattern of length m (hibit =
+// m-1). The horizontal carry-in is the score's step along the text's row
+// 0: 0 for the search (free text start, D[0][j] = 0), 1 for the global
+// distance (D[0][j] = j). Bits above hibit may hold anything: every
+// operation carries upward only, so they never reach the bits read.
+template <unsigned CARRY>
+__device__ __forceinline__ void myers_column(unsigned eq, unsigned& PV,
+                                             unsigned& MV, int& score,
+                                             int hibit) {
   unsigned Xv = eq | MV;
   unsigned Xh = (((eq & PV) + PV) ^ PV) | eq;
   unsigned Ph = MV | ~(Xh | PV);
   unsigned Mh = PV & Xh;
   score += (int)((Ph >> hibit) & 1u);
   score -= (int)((Mh >> hibit) & 1u);
-  Ph <<= 1;
+  Ph = (Ph << 1) | CARRY;
   Mh <<= 1;
   PV = Mh | ~(Xv | Ph);
   MV = Ph & Xv;
+}
+
+// The semi-global search column (carry-in 0: free text start).
+__device__ __forceinline__ void myers_step(unsigned eq, unsigned& PV,
+                                           unsigned& MV, int& score,
+                                           int hibit) {
+  myers_column<0u>(eq, PV, MV, score, hibit);
+}
+
+// The global distance column (carry-in 1: D[0][j] = j).
+__device__ __forceinline__ void myers_step_global(unsigned eq, unsigned& PV,
+                                                  unsigned& MV, int& score,
+                                                  int hibit) {
+  myers_column<1u>(eq, PV, MV, score, hibit);
 }
 
 __device__ __forceinline__ unsigned full_mask(int m) {

@@ -20,8 +20,8 @@ Kernels (CUDA for CUDA tensors, plain torch for CPU tensors):
                                                     the cached pipeline on
                                                     the fused route)
   * tile feed       ops.tilescan_cuda.tile_feed    (the fused route: the
-                    tile rows of the reads with min_len < L <= 2E, built
-                    from pass 1's uploaded codes)
+                    tile rows of the reads with min_len < L <= 2E, and of
+                    no other, built from pass 1's uploaded codes)
 
 The JAX model's `_pack_batch` (nibble packing, power-of-two batch buckets)
 and `_pack_meta` (int16 meta rows) have no counterpart: they shape the
@@ -526,18 +526,22 @@ def make_pass1_full_body(cfg: PipelineConfig, fused_tiles: bool = False):
     pass-1 rows, everything pass 2 emits from, and the BC search windows
     (uint8 [bw, B]) the pass-2 sweep reads. fn(codes, lens) -> (rows
     int32 [len(P1F_ROWS), B], windows uint8 [bw, B]). With `fused_tiles`
-    a third output: the chimera scan [3, B] int32 of the tile feed's rows
-    of the SAME uploaded codes (n = 0 for a read outside the feed; those
-    with an interior take the host tiles)."""
+    fn(codes, lens, idx) and a third output: the chimera scan [3, C] int32
+    of the tile feed's rows of the reads idx [C] int32 (the covered reads,
+    `feed_covered`) of the SAME uploaded codes; the reads with an interior
+    outside the feed take the host tiles. C = 0 launches neither kernel."""
     p = eg2.edge_params(cfg)
     tp = tile_params(cfg)
     sel = [r for _, r in P1F_ROWS]
 
-    def fn(codes, lens):
+    def fn(codes, lens, idx=None):
         meta = edge_scan2(codes, lens, p)
         out = (meta[sel], meta[eg2.ROW_BC0:].to(torch.uint8))
         if fused_tiles:
-            out += (tile_scan(tile_feed(codes, lens, tp), tp),)
+            out += (tile_scan(tile_feed(codes, lens, idx, tp), tp)
+                    if len(idx) else
+                    torch.zeros((3, 0), dtype=torch.int32,
+                                device=codes.device),)
         return out
 
     return fn
@@ -724,26 +728,42 @@ class ReadScanModel:
 
     def scan_pass1_full_async(self, seqs: list[bytes], quals: list[bytes]):
         """Launch the pass-1 FULL scan (edge rows + BC windows, and on the
-        fused route the short reads' chimera scan, see
+        fused route the covered reads' chimera scan, see
         make_pass1_full_body); force with finish_pass1_full."""
         codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
         body = self._pass1_full_tiles_fn if self._p1f_tiles \
             else self._pass1_full_fn
-        hs = self._sharded(len(true_lens), lambda dev, a, b: body(
-            *_upload(dev, codes, true_lens, a, b)))
-        return hs, qv2, true_lens, qsum
+        # the fused route (one device, no mesh: one shard, a = 0): the
+        # covered reads' index goes up with the codes
+        cov_idx = np.nonzero(feed_covered(true_lens, self._tile_params))[0] \
+            if self._p1f_tiles else None
+
+        def run(dev, a, b):
+            args = _upload(dev, codes, true_lens, a, b)
+            if cov_idx is not None:
+                args += (torch.from_numpy(cov_idx.astype(np.int32)).to(dev),)
+            return body(*args)
+
+        hs = self._sharded(len(true_lens), run)
+        return hs, qv2, true_lens, qsum, cov_idx
 
     def finish_pass1_full(self, handle):
         """-> (out dict with finalized ps/pe/ae/tso/x windows and all three
         QV means, the BC search windows uint8 [bw, B] for the pass-2
-        sweep, the fused route's chimera scan [3, B] int32 or None)."""
-        hs, qv2, true_lens, qsum = handle
+        sweep, the fused route's chimera scan [3, B] int32 or None: the
+        covered reads' rows scattered back to their reads, every other read
+        n = 0, no split)."""
+        hs, qv2, true_lens, qsum, cov_idx = handle
         out = finalize_rows_np(_host_rows(hs, 0), P1F_ROW_NAMES, true_lens,
                                self.cfg)
         eg2.compute_qvs2_np(qv2, true_lens, out,
                             self.cfg.barcodes.cell_bc_length, self.is5p,
                             qsum)
-        tiles3 = _host_rows(hs, 2) if len(hs[0]) == 3 else None
+        tiles3 = None
+        if cov_idx is not None:
+            tiles3 = np.zeros((3, len(true_lens)), np.int32)
+            tiles3[1:] = -1
+            tiles3[:, cov_idx] = _host_rows(hs, 2)
         return out, _host_rows(hs, 1), tiles3
 
     def tiles_fused_mask(self, true_lens, dirty):

@@ -1,6 +1,6 @@
 """Myers bit-parallel edit distance: the semi-global sweep and the global
-pairwise matrix in plain PyTorch, and the single-pattern window search
-kernel (csrc/win1.cu).
+pairwise matrix in plain PyTorch, the single-pattern window search kernel
+(csrc/win1.cu) and the UMI distance matrix kernel (csrc/pairwise.cu).
 
 Port of `sicelore_tpu/ops/editdist.py` (`build_peq`, the Hyyrö column update,
 `_eq_select`, `myers_sweep`, `best_two`, `myers_global_pairwise`,
@@ -279,3 +279,88 @@ def myers_global_pairwise(peq_g: np.ndarray, texts: torch.Tensor,
 
 
 myers_global_pairwise.launches = 0
+
+
+def pairwise_inputs(peq: np.ndarray, mlens: np.ndarray, texts: np.ndarray,
+                    tlens: np.ndarray, device):
+    """One group's inputs of `myers_global_rows` on `device` in one upload:
+    peq [4, K] uint32, mlens [K], texts [K, L] int8 codes and tlens [K] are
+    packed into one int32 buffer on the host, copied once, and returned as
+    views of it (peq as int32 [4, K], mlens and tlens int32 [K], texts int8
+    [K, L])."""
+    K, L = texts.shape
+    nw = (K * L + 3) // 4 + 1      # + 1: the texts' view is never empty
+    buf = np.zeros(6 * K + nw, np.int32)
+    buf[:4 * K] = np.ascontiguousarray(peq, np.uint32).view(np.int32).ravel()
+    buf[4 * K:5 * K] = mlens
+    buf[5 * K:6 * K] = tlens
+    buf[6 * K:].view(np.int8)[:K * L] = np.ascontiguousarray(texts).ravel()
+    t = torch.from_numpy(buf).to(device)
+    return (t[:4 * K].view(4, K), t[4 * K:5 * K], t[6 * K:].view(
+        torch.int8)[:K * L].view(K, L), t[5 * K:6 * K])
+
+
+def myers_global_rows_plain(peq: torch.Tensor, mlens: torch.Tensor,
+                            texts: torch.Tensor, tlens: torch.Tensor):
+    """Plain version of `myers_global_rows`: one `myers_global_pairwise`
+    call for each pattern length of 1..32 nt among the rows; the other rows
+    stay 0."""
+    myers_global_rows_plain.launches += 1
+    K = texts.shape[0]
+    d = torch.zeros((K, K), dtype=torch.int32, device=texts.device)
+    peq_np = peq.cpu().numpy().view(np.uint32)
+    ml = mlens.cpu().numpy()
+    for m in np.unique(ml).tolist():
+        if not 1 <= m <= 32:
+            continue
+        rows = np.nonzero(ml == m)[0]
+        sub = np.ascontiguousarray(peq_np[:, rows])[None]
+        out = myers_global_pairwise(sub, texts[None], tlens[None], m)
+        d[torch.from_numpy(rows).to(d.device)] = out[0]
+    return d
+
+
+myers_global_rows_plain.launches = 0
+
+
+def myers_global_rows(peq: torch.Tensor, mlens: torch.Tensor,
+                      texts: torch.Tensor, tlens: torch.Tensor):
+    """The UMI distance matrix of one group, every pattern length at once.
+
+    peq [4, K] int32 (the uint32 Peq bits of `build_peq`, row i's pattern
+    in column i), mlens [K] int32 the pattern lengths, texts [K, L] int8
+    codes (L >= 1), tlens [K] int32 the true text lengths (0..L). Returns d
+    [K, K] int32: d[i, j] = the global distance of pattern i against text
+    j, as `myers_global_pairwise` gives it (N and PAD match nothing; the
+    score after column tlens[j]); rows with mlens outside 1..32 are 0 (the
+    caller's host rows). CPU tensors take the plain version; CUDA tensors
+    launch csrc/pairwise.cu (all on one device, contiguous)."""
+    if texts.dim() != 2 or texts.shape[1] < 1:
+        raise ValueError(f"texts must be [K, L >= 1], "
+                         f"got {tuple(texts.shape)}")
+    K = texts.shape[0]
+    if (peq.shape != (4, K) or mlens.shape != (K,)
+            or tlens.shape != (K,)):
+        raise ValueError(f"peq must be [4, K], mlens and tlens [K] for K = "
+                         f"{K}, got {tuple(peq.shape)}, "
+                         f"{tuple(mlens.shape)}, {tuple(tlens.shape)}")
+    if texts.device.type == "cpu":
+        return myers_global_rows_plain(peq, mlens, texts, tlens)
+    if (peq.dtype, mlens.dtype, texts.dtype, tlens.dtype) != (
+            torch.int32, torch.int32, torch.int8, torch.int32):
+        raise ValueError("peq, mlens and tlens must be int32, texts int8")
+    ts = (peq, mlens, texts, tlens)
+    if any(t.device != texts.device or not t.is_contiguous() for t in ts):
+        raise ValueError("the inputs must be contiguous, on one device")
+    out = torch.empty((K, K), dtype=torch.int32, device=texts.device)
+    if K == 0:
+        return out
+    fn = _build.bind("pairwise", "pairwise_launch", 5, 2)
+    _build.launch(fn, "pairwise", texts.device, peq.data_ptr(),
+                  mlens.data_ptr(), texts.data_ptr(), tlens.data_ptr(),
+                  out.data_ptr(), K, texts.shape[1])
+    myers_global_rows.launches += 1
+    return out
+
+
+myers_global_rows.launches = 0

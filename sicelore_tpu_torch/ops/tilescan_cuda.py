@@ -12,7 +12,8 @@ absent). The plain version is a torch port of
 The tile feed builds those rows on the device from `encode_two_half`'s codes
 for the reads that lie whole in them (the route of
 `sicelore_tpu/ops/tilescan_tpu.py::make_composite_tile_fn`), so the cached
-pass 1 scans their interiors from the upload it has already made.
+pass 1 scans their interiors from the upload it has already made: only
+those reads' rows, gathered by an index the host builds from the lengths.
 """
 from __future__ import annotations
 
@@ -205,20 +206,23 @@ def _pack_rows(codes: torch.Tensor, meta) -> torch.Tensor:
 
 
 def tile_feed_plain(codes: torch.Tensor, lens: torch.Tensor,
-                    p: TileParams) -> torch.Tensor:
-    """Plain PyTorch tile feed: encode_two_half's codes [B, 2E] int8 and
-    lens [B] -> [B, ROW_BYTES] uint8, one row a read. A covered read
-    (`feed_covered`) gets the one row build_tiles writes for it (g0 = 0,
-    the tail shifted by 2E - L into place, PAD from L on, a PAD code inside
-    the read as N, as build_tiles encodes a NUL byte); every other read an
-    inert row (PAD codes, zero meta), which the scan reports as n = 0."""
+                    idx: torch.Tensor, p: TileParams) -> torch.Tensor:
+    """Plain PyTorch tile feed: encode_two_half's codes [B, 2E] int8, lens
+    [B] and idx [C] (the reads to feed, each in [0, B): the caller's
+    `feed_covered` reads) -> [C, ROW_BYTES] uint8, row i for read idx[i].
+    A covered read (`feed_covered`) gets the one row build_tiles writes for
+    it (g0 = 0, the tail shifted by 2E - L into place, PAD from L on, a PAD
+    code inside the read as N, as build_tiles encodes a NUL byte); any other
+    read an inert row (PAD codes, zero meta), which the scan reports as
+    n = 0."""
     tile_feed_plain.launches += 1
     dev = codes.device
-    L = lens.to(device=dev, dtype=torch.int64)
+    ix = idx.to(device=dev, dtype=torch.int64)
+    L = lens.to(device=dev, dtype=torch.int64)[ix]
     cov = feed_covered(L, p)
     j = torch.arange(TILE, device=dev)[None, :]
     src = torch.where(j < E, j, j + 2 * E - L[:, None]).clamp(0, 2 * E - 1)
-    c = codes.gather(1, src)
+    c = codes[ix].gather(1, src)
     c = torch.where(c == dna.PAD, dna.N_CODE, c)
     c = torch.where((j < L[:, None]) & cov[:, None], c, dna.PAD)
     zero = torch.zeros_like(L)
@@ -232,32 +236,39 @@ def tile_feed_plain(codes: torch.Tensor, lens: torch.Tensor,
 tile_feed_plain.launches = 0
 
 
-def tile_feed(codes: torch.Tensor, lens: torch.Tensor,
+def tile_feed(codes: torch.Tensor, lens: torch.Tensor, idx: torch.Tensor,
               p: TileParams) -> torch.Tensor:
-    """Tile rows [B, ROW_BYTES] uint8 of encode_two_half's codes [B, 2E]
-    int8 and lens [B] int32 (see tile_feed_plain). CPU tensors take the
-    plain version; CUDA tensors launch csrc/tilefeed.cu on the codes as
-    they are (contiguous, 16-byte aligned: the kernel stages them with
-    16-byte loads)."""
+    """Tile rows [C, ROW_BYTES] uint8 of the reads idx [C] int32 of
+    encode_two_half's codes [B, 2E] int8 and lens [B] int32 (see
+    tile_feed_plain). CPU tensors take the plain version; CUDA tensors
+    launch csrc/tilefeed.cu on the codes as they are (contiguous, 16-byte
+    aligned: the kernel copies them in 16-byte pieces). C = 0 launches
+    nothing."""
     if codes.dim() != 2 or codes.shape[1] != 2 * E:
         raise ValueError(f"codes must be [B, 2E={2 * E}], "
                          f"got {tuple(codes.shape)}")
     B = codes.shape[0]
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be [C], got {tuple(idx.shape)}")
     if codes.device.type == "cpu":
-        return tile_feed_plain(codes, lens, p)
+        return tile_feed_plain(codes, lens, idx, p)
     if codes.dtype != torch.int8 or not codes.is_contiguous():
         raise ValueError("codes must be contiguous int8")
     if codes.data_ptr() % 16:
         raise ValueError("codes must start on a 16-byte boundary")
-    if (lens.dtype != torch.int32 or lens.shape != (B,)
-            or lens.device != codes.device or not lens.is_contiguous()):
-        raise ValueError("lens must be contiguous int32 [B] on codes' device")
-    out = torch.empty((B, ROW_BYTES), dtype=torch.uint8, device=codes.device)
-    if B == 0:
+    for name, t, n in (("lens", lens, B), ("idx", idx, idx.shape[0])):
+        if (t.dtype != torch.int32 or t.shape != (n,)
+                or t.device != codes.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 [{n}] on "
+                             f"codes' device")
+    C = idx.shape[0]
+    out = torch.empty((C, ROW_BYTES), dtype=torch.uint8, device=codes.device)
+    if C == 0:
         return out
-    fn = _build.bind("tilefeed", "tilefeed_launch", 3, 3)
+    fn = _build.bind("tilefeed", "tilefeed_launch", 4, 4)
     _build.launch(fn, "tilefeed", codes.device, codes.data_ptr(),
-                  lens.data_ptr(), out.data_ptr(), B, p.edge, p.k)
+                  lens.data_ptr(), idx.data_ptr(), out.data_ptr(), B, C,
+                  p.edge, p.k)
     tile_feed.launches += 1
     return out
 

@@ -12,10 +12,11 @@ and the first launch of each kernel on the card. `warm` pays them up front:
   - launches the edge scan, the whitelist sweep (at `n_bc` barcodes), the
     tile feed, the tile scan and the window search once each at a
     scanfastq chunk's shapes
-    (CHUNK reads; with `full`, also the smaller tail chunks), and the band
+    (CHUNK reads; with `full`, also the smaller tail chunks), the band
     aligner at the consensus buckets (Lc 256 and 512; with `full`, 1,024
     and 2,048) and at the aligner's gap buckets (Lc 64; with `full`, 128
-    and 256);
+    and 256), and the UMI distance matrix at a group of 288 UMIs (with
+    `full`, also one of 3,000);
   - returns {kernel: ms}, the wall time of each kernel's warm calls.
 
 Each launch is checked by the wrapper's launch counter: a warm-up that did
@@ -32,7 +33,7 @@ import sys
 import time
 
 KERNELS = ("edgescan", "bcsweep", "tilefeed", "tilescan", "win1",
-           "bandalign")
+           "bandalign", "pairwise")
 CHUNK = 50_000    # reads a scanfastq chunk (ScanFastqPipeline's chunk_size)
 
 
@@ -41,8 +42,9 @@ def _counters():
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
     return {"edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
-            "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan, "win1": editdist.myers_win1,
-            "bandalign": poa_cuda.band_align}
+            "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan,
+            "win1": editdist.myers_win1, "bandalign": poa_cuda.band_align,
+            "pairwise": editdist.myers_global_rows}
 
 
 def _reads(rng, n: int, length: int) -> list[bytes]:
@@ -59,6 +61,7 @@ def jobs(dev, n_bc: int, full: bool, chunk: int) -> list:
     import torch
 
     from sicelore_tpu_torch.align.extend import GapBatcher
+    from sicelore_tpu_torch.core import umicluster
     from sicelore_tpu_torch.models import readscan
     from sicelore_tpu_torch.ops import edgescan as eg
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
@@ -83,8 +86,11 @@ def jobs(dev, n_bc: int, full: bool, chunk: int) -> list:
 
     def feed(seqs, quals):
         codes, _, lens, _ = eg.encode_two_half(seqs, quals)
+        idx = np.nonzero(ts.feed_covered(lens, model._tile_params))[0]
         ts.tile_feed(torch.from_numpy(codes).to(dev),
-                     torch.from_numpy(lens).to(dev), model._tile_params)
+                     torch.from_numpy(lens).to(dev),
+                     torch.from_numpy(idx.astype(np.int32)).to(dev),
+                     model._tile_params)
 
     out = []
     for B in [chunk] + ([4_096, 256] if full else []):
@@ -121,6 +127,11 @@ def jobs(dev, n_bc: int, full: bool, chunk: int) -> list:
                 gb.add(R, synth.mutate_np(rng, R, 0.03)[:len(R) + 4])
             gb.run()
         out.append((f"bandalign_gap_L{lc}", "bandalign", gaps))
+    for K in [288] + ([3_000] if full else []):
+        umis = [dna.decode(rng.integers(0, 4, 12)).encode()
+                for _ in range(K)]
+        out.append((f"pairwise_K{K}", "pairwise",
+                    lambda u=umis: umicluster._pairwise_ed_device(u, dev)))
 
     return out
 

@@ -18,6 +18,7 @@ SETS = {
     "tilescan": ((), kv.TILE_VARIANTS),
     "edgescan": (kv.EDGE_PATCHES,
                  {k: reps for k, (reps, _) in kv.EDGE_VARIANTS.items()}),
+    "tilefeed": ((), kv.FEED_VARIANTS),
 }
 
 

@@ -399,33 +399,43 @@ def test_tile_kernel_rejects_other_inputs(dev):
         ts.tile_scan(rows[:, :ts.ROW_BYTES], p)
 
 
+@pytest.mark.parametrize("index", ["covered", "all"])
 @pytest.mark.parametrize("n", [1, 33, None])
-def test_tile_feed_kernel_matches_plain(dev, reads, n):
+def test_tile_feed_kernel_matches_plain(dev, reads, n, index):
     """csrc/tilefeed.cu against tile_feed_plain, byte for byte, on the
     reads fixture and chip_smoke.py's feed edge set (lengths around E,
     min_len and 2E, N, lowercase, NUL and other bytes, short chimeras), in
-    launches of 1, 33 and all reads."""
+    launches of 1, 33 and all reads, fed the covered reads' index (the
+    fused route's) and every read's (inert rows too); an empty index
+    launches nothing."""
     _, seqs = reads
     es, _ = chip_smoke.feed_edge_reads(np.random.default_rng(3))
     seqs = (seqs + es)[:n]
     codes, lens, _, _ = _rows(seqs, dev)
     p = ts.tile_params(PipelineConfig())
+    idx = chip_smoke.covered_index(lens.cpu().numpy(), p, dev) \
+        if index == "covered" else \
+        torch.arange(len(seqs), dtype=torch.int32, device=dev)
     before = ts.tile_feed.launches
-    got = ts.tile_feed(codes, lens, p)
+    got = ts.tile_feed(codes, lens, idx, p)
     torch.cuda.synchronize()
-    assert ts.tile_feed.launches == before + 1
-    want = ts.tile_feed_plain(codes.cpu(), lens.cpu(), p)
-    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+    assert ts.tile_feed.launches == before + (len(idx) > 0)
+    want = ts.tile_feed_plain(codes.cpu(), lens.cpu(), idx.cpu(), p)
+    assert got.dtype == torch.uint8 and got.shape == (len(idx), ts.ROW_BYTES)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_tile_feed_kernel_rejects_other_inputs(dev):
     p = ts.tile_params(PipelineConfig())
     codes = torch.zeros((4 * 2 * eg.E + 16,), dtype=torch.int8, device=dev)
     lens = torch.zeros(3, dtype=torch.int32, device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="16-byte"):
-        ts.tile_feed(codes[1:1 + 3 * 2 * eg.E].view(3, -1), lens, p)
+        ts.tile_feed(codes[1:1 + 3 * 2 * eg.E].view(3, -1), lens, idx, p)
     with pytest.raises(ValueError, match="lens"):
-        ts.tile_feed(codes[:3 * 2 * eg.E].view(3, -1), lens.long(), p)
+        ts.tile_feed(codes[:3 * 2 * eg.E].view(3, -1), lens.long(), idx, p)
+    with pytest.raises(ValueError, match="idx"):
+        ts.tile_feed(codes[:3 * 2 * eg.E].view(3, -1), lens, idx.long(), p)
 
 
 def test_fused_splits_equal_host_splits(dev, reads):
@@ -439,9 +449,10 @@ def test_fused_splits_equal_host_splits(dev, reads):
     quals = [b"I" * len(s) for s in seqs]
     m = readscan.ReadScanModel(PipelineConfig(), device=dev)
     assert m._p1f_tiles
-    before = ts.tile_feed.launches
+    before = (ts.tile_feed.launches, ts.tile_scan.launches)
     out, _, tiles3 = m.finish_pass1_full(m.scan_pass1_full_async(seqs, quals))
-    assert ts.tile_feed.launches == before + 1
+    assert (ts.tile_feed.launches, ts.tile_scan.launches) == \
+        (before[0] + 1, before[1] + 1)
     covered, need = m.tiles_fused_mask(out["true_lens"],
                                        np.zeros(len(seqs), bool))
     need_idx = np.nonzero(need)[0]
@@ -621,9 +632,15 @@ def test_pairwise_ed_cuda_matches_cpu(dev):
         [dna.decode(rng.integers(0, 4, int(rng.integers(10, 17)))).encode()
          for _ in range(200)]
         + [b"", b"ACGTN" * 7, b"ACGTN" * 6, b"AAAANCCCCGGGG"]))
-    before = editdist.myers_global_pairwise.launches
+    before = (editdist.myers_global_rows.launches,
+              editdist.myers_global_pairwise.launches,
+              editdist.myers_global_rows_plain.launches)
     got = umicluster.pairwise_ed(umis, device="cuda")
-    assert editdist.myers_global_pairwise.launches > before
+    # one kernel launch for the group, every length class in it; no plain
+    assert (editdist.myers_global_rows.launches,
+            editdist.myers_global_pairwise.launches,
+            editdist.myers_global_rows_plain.launches) == \
+        (before[0] + 1, before[1], before[2])
     np.testing.assert_array_equal(got,
                                   umicluster.pairwise_ed(umis, device="cpu"))
     quals = [float(x) for x in rng.integers(20, 24, len(umis))]
@@ -631,3 +648,52 @@ def test_pairwise_ed_cuda_matches_cpu(dev):
     b = umicluster.cluster_group(umis, quals, device="cpu")
     assert [(c.center, c.members) for c in a] == \
         [(c.center, c.members) for c in b]
+
+
+@pytest.mark.parametrize("group", ["g288", "mixed", "g3000"])
+def test_pairwise_kernel_matches_plain(dev, group):
+    """csrc/pairwise.cu against myers_global_rows_plain, element for
+    element, on chip_smoke.py's groups: 256 UMIs of 12 nt and 32 of 16 nt,
+    mixed lengths with N, an empty and 33-nt UMIs (their rows 0), and
+    3,000 UMIs of 10-14 nt."""
+    umis = chip_smoke.umi_groups()[group]
+    L = max(len(u) for u in umis)
+    tx, tl = dna.encode_batch(umis, L)
+    ml = np.fromiter((len(u) for u in umis), np.int32, len(umis))
+    peq = editdist.build_peq(tx[:, :min(L, 32)])
+    args = editdist.pairwise_inputs(peq, ml, tx, tl, dev)
+    before = editdist.myers_global_rows.launches
+    got = editdist.myers_global_rows(*args)
+    torch.cuda.synchronize()
+    assert editdist.myers_global_rows.launches == before + 1
+    want = editdist.myers_global_rows_plain(*args)
+    assert got.dtype == torch.int32 and got.shape == (len(umis),) * 2
+    assert torch.equal(got, want)
+    host = (ml == 0) | (ml > 32)
+    assert (got.cpu().numpy()[host] == 0).all()
+
+
+def test_pairwise_kernel_rejects_other_inputs(dev):
+    umis = chip_smoke.umi_groups()["mixed"][:40]
+    tx, tl = dna.encode_batch(umis, max(len(u) for u in umis))
+    ml = np.fromiter((len(u) for u in umis), np.int32, len(umis))
+    args = editdist.pairwise_inputs(editdist.build_peq(tx[:, :32]), ml, tx,
+                                    tl, dev)
+    for bad, what in (((args[0].long(),) + args[1:], "int32"),
+                      (args[:2] + (args[2].int(), args[3]), "int8"),
+                      ((args[0][:, :-1],) + args[1:], "peq must be"),
+                      (args[:3] + (args[3][:-1],), "tlens"),
+                      (args[:2] + (args[2][:, :0], args[3]), "L >= 1"),
+                      (args[:2] + (args[2].t().contiguous().t(), args[3]),
+                       "contiguous"),
+                      (args[:3] + (args[3].cpu(),), "one device")):
+        with pytest.raises(ValueError, match=what):
+            editdist.myers_global_rows(*bad)
+    # an empty group launches nothing
+    e = editdist.pairwise_inputs(np.zeros((4, 0), np.uint32),
+                                 np.zeros(0, np.int32),
+                                 np.zeros((0, 1), np.int8),
+                                 np.zeros(0, np.int32), dev)
+    before = editdist.myers_global_rows.launches
+    assert editdist.myers_global_rows(*e).shape == (0, 0)
+    assert editdist.myers_global_rows.launches == before

@@ -10,6 +10,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +46,53 @@ def _free_port():
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+# what a rank prints when its store cannot take the port (another process
+# took it after _free_port closed it, or rank 1's connect retries took it
+# themselves: a TCP self-connect, which a port in the ephemeral range
+# allows)
+ADDRESS_IN_USE = ("address already in use", "eaddrinuse", "errno: 98")
+LAUNCHES = 3        # the workers are relaunched on a fresh port at most twice
+
+
+def _run_workers(tmp_path, fmt, timeout=120):
+    """Start the two workers (WORKER.format(**fmt, coord=, pid=)) on a
+    fresh port; a worker that exits with an error ends its peer at once
+    (it would wait out the group's timeout). Relaunch on a new port, at
+    most LAUNCHES times in all, only when a worker's stderr says the
+    address is in use. -> ([returncode], [stderr text], seconds, tries)."""
+    for attempt in range(1, LAUNCHES + 1):
+        coord = f"localhost:{_free_port()}"
+        procs, errs = [], []
+        t0 = time.perf_counter()
+        for pid in range(2):
+            err = tmp_path / f"worker{pid}_try{attempt}.err"
+            errs.append(err)
+            with open(tmp_path / f"worker{pid}.out", "wb") as so, \
+                    open(err, "wb") as se:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c",
+                     WORKER.format(coord=coord, pid=pid, **fmt)],
+                    cwd=tmp_path, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                    stdout=so, stderr=se))
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.returncode for p in procs) or \
+                        time.perf_counter() - t0 > timeout:
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        secs = time.perf_counter() - t0
+        texts = [e.read_text(errors="replace") for e in errs]
+        rcs = [p.returncode for p in procs]
+        if not any(rcs) or not any(m in t.lower() for t in texts
+                                   for m in ADDRESS_IN_USE):
+            return rcs, texts, secs, attempt
+    return rcs, texts, secs, attempt
 
 
 @pytest.mark.parametrize("pid,n", [(0, 2), (1, 2), (2, 3), (0, 1)])
@@ -103,23 +151,11 @@ def test_two_process_run_matches_jax_single(tmp_path):
     wl_json = tmp_path / "wl.json"
     wl_json.write_text(json.dumps(list(wl)))
     out_dir = tmp_path / "multi"
-    coord = f"localhost:{_free_port()}"
-    procs = []
-    for pid in range(2):
-        script = WORKER.format(repo=str(REPO), coord=coord, pid=pid,
-                               wl_json=str(wl_json), fq_dir=str(fq_dir),
-                               out_dir=str(out_dir))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", script], cwd=tmp_path,
-            env=dict(os.environ, PYTHONPATH=str(REPO)),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-    try:
-        outs = [p.communicate(timeout=120) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, (_, se) in zip(procs, outs):
-        assert p.returncode == 0, se.decode()[-2000:]
+    rcs, errs, secs, tries = _run_workers(tmp_path, dict(
+        repo=str(REPO), wl_json=str(wl_json), fq_dir=str(fq_dir),
+        out_dir=str(out_dir)))
+    for rc, se in zip(rcs, errs):
+        assert rc == 0, f"after {secs:.1f} s, launch {tries}: " + se[-2000:]
 
     ref = JaxPipeline(whitelist=list(wl), user_max_ed=2, chunk_size=64)
     s_ref = ref.run([fq_dir], tmp_path / "one")

@@ -66,7 +66,8 @@ def test_steps_1_to_4b_byte_identical_to_jax(run):
     # the CPU path: plain bodies only, the gap extension in the aligner
     # and the batched UMI distances in assignumis
     assert set(steps["align"]["launches"]) == {"plain_bandalign"}
-    assert set(steps["assignumis"]["launches"]) == {"myers_global_pairwise"}
+    assert set(steps["assignumis"]["launches"]) == {"plain_pairwise",
+                                                    "myers_global_pairwise"}
     assert not any(k in ("edgescan", "bcsweep", "tilescan", "win1",
                          "bandalign") for st in steps.values()
                    for k in st["launches"])

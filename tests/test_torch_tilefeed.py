@@ -2,8 +2,10 @@
 cached pipeline's fused route against the JAX package, on the CPU (plain
 torch bodies), exact equality:
 
-  * the feed's rows equal `build_tiles`' row of every covered read (the
-    native tiler and its numpy fallback), inert rows elsewhere;
+  * the feed's rows of the covered reads' index equal `build_tiles`' row of
+    each (the native tiler and its numpy fallback), inert rows for an index
+    of any other read; a numpy model of csrc/tilefeed.cu's word build
+    gives the same rows;
   * feed + tile scan equal the JAX `make_composite_tile_fn` on the JAX
     composite of the same reads (the Pallas tile kernel stood in for by its
     documented contract, the jnp inner: interpret mode takes minutes);
@@ -39,12 +41,28 @@ from test_torch_scanfastq import (_cfg5p, _same_outputs, _write_fastq,
                                   n_dir, run5p_dir)  # noqa: F401 fixtures
 
 
-def _feed(seqs, quals, cfg=None):
-    """(feed rows [B, 528] uint8, lens, the feed's TileParams) on the CPU."""
+def _feed(seqs, quals, cfg=None, index="covered"):
+    """(feed rows [C, 528] uint8, lens, the feed's TileParams, the index
+    [C] fed) on the CPU: the covered reads' index (the fused route's), or
+    every read's ("all")."""
     tp = ts.tile_params(cfg or TorchConfig())
     codes, _, lens, _ = eg.encode_two_half(seqs, quals)
+    idx = np.nonzero(ts.feed_covered(lens, tp))[0] if index == "covered" \
+        else np.arange(len(lens))
+    idx = idx.astype(np.int32)
     return (ts.tile_feed(torch.from_numpy(codes), torch.from_numpy(lens),
-                         tp).numpy(), lens, tp)
+                         torch.from_numpy(idx), tp).numpy(), lens, tp, idx)
+
+
+def _tiles3(seqs, quals, cfg=None):
+    """The fused route's chimera scan [3, B] on the CPU: the feed + scan of
+    the covered reads, scattered back to their reads (n = 0, no split
+    elsewhere), as `finish_pass1_full` does."""
+    rows, lens, tp, idx = _feed(seqs, quals, cfg)
+    tiles3 = np.zeros((3, len(lens)), np.int32)
+    tiles3[1:] = -1
+    tiles3[:, idx] = ts.tile_scan_plain(torch.from_numpy(rows), tp).numpy()
+    return tiles3, lens, tp
 
 
 @pytest.fixture(scope="module")
@@ -64,37 +82,51 @@ def test_feed_rows_equal_build_tiles(edge_reads, monkeypatch, tiler):
         pytest.skip("the native host codecs are not built here")
     seqs, quals = edge_reads
     cfg = TorchConfig()
-    rows, lens, tp = _feed(seqs, quals, cfg)
+    rows, lens, tp, idx = _feed(seqs, quals, cfg)
     tiles, read_idx, g0s = readscan.build_tiles(seqs, cfg)
     cov = ts.feed_covered(lens, tp)
     assert cov.sum() > 100 and (~cov).sum() > 10
     for L in (316, 607, 608):
         assert cov[lens == L].all()
     assert not cov[np.isin(lens, (315, 609))].any()
+    np.testing.assert_array_equal(idx, np.nonzero(cov)[0])
+    assert rows.shape == (cov.sum(), ts.ROW_BYTES)
     t_of = {int(r): t for t, r in enumerate(read_idx)}
-    for r in np.nonzero(cov)[0]:
+    for i, r in enumerate(idx):
         t = t_of[int(r)]
         assert g0s[t] == 0 and (read_idx == r).sum() == 1
-        np.testing.assert_array_equal(rows[r], tiles[t], err_msg=str(r))
-    assert (rows[~cov, :ts.TILE // 2] == 0x55).all()
-    assert (rows[~cov, ts.TILE // 2:] == 0).all()
-    # the inert rows scan to n = 0; the short chimeras split
+        np.testing.assert_array_equal(rows[i], tiles[t], err_msg=str(r))
+    # the short chimeras split
     out = ts.tile_scan_plain(torch.from_numpy(rows), tp).numpy()
-    assert (out[0][~cov] == 0).all() and (out[0][cov] > 0).sum() >= 10
+    assert (out[0] > 0).sum() >= 10
+    # an index of every read: the same rows, inert ones for the rest
+    rows_all = _feed(seqs, quals, cfg, index="all")[0]
+    np.testing.assert_array_equal(rows_all[cov], rows)
+    assert (rows_all[~cov, :ts.TILE // 2] == 0x55).all()
+    assert (rows_all[~cov, ts.TILE // 2:] == 0).all()
+    # the inert rows scan to n = 0
+    out = ts.tile_scan_plain(torch.from_numpy(rows_all[~cov]), tp).numpy()
+    assert (out[0] == 0).all()
 
 
 def test_feed_wrapper_checks_and_counts():
     tp = ts.tile_params(TorchConfig())
     codes = torch.full((3, 2 * eg.E), 5, dtype=torch.int8)
     lens = torch.tensor([0, 400, 700], dtype=torch.int32)
+    idx = torch.tensor([1, 0], dtype=torch.int32)
     before = ts.tile_feed_plain.launches
-    rows = ts.tile_feed(codes, lens, tp)
+    rows = ts.tile_feed(codes, lens, idx, tp)
     assert ts.tile_feed_plain.launches == before + 1
-    assert rows.shape == (3, ts.ROW_BYTES) and rows.dtype == torch.uint8
-    # a covered read of all-PAD codes (NUL bytes) reads as N
-    assert (rows[1, :200] == 0x44).all() and (rows[1, 200:512] == 0x55).all()
+    assert rows.shape == (2, ts.ROW_BYTES) and rows.dtype == torch.uint8
+    # a covered read of all-PAD codes (NUL bytes) reads as N; read 0 is
+    # not covered: an inert row
+    assert (rows[0, :200] == 0x44).all() and (rows[0, 200:512] == 0x55).all()
+    assert (rows[1, :512] == 0x55).all() and (rows[1, 512:] == 0).all()
+    assert ts.tile_feed(codes, lens, idx[:0], tp).shape == (0, ts.ROW_BYTES)
     with pytest.raises(ValueError, match="2E"):
-        ts.tile_feed(codes[:, :eg.E], lens, tp)
+        ts.tile_feed(codes[:, :eg.E], lens, idx, tp)
+    with pytest.raises(ValueError, match="idx"):
+        ts.tile_feed(codes, lens, idx[None], tp)
 
 
 def _composite_kernel_standin(cfg, interpret=False):
@@ -147,8 +179,7 @@ def test_feed_scan_equals_jax_composite(monkeypatch, chem):
     assert not dirty.any()
     ref = np.asarray(tilescan_tpu.make_composite_tile_fn(cfg)(
         jnp.asarray(packed_tm))).astype(np.int32)
-    rows, lens, tp = _feed(seqs, quals, tcfg)
-    got = ts.tile_scan_plain(torch.from_numpy(rows), tp).numpy()
+    got, lens, tp = _tiles3(seqs, quals, tcfg)
     np.testing.assert_array_equal(got, ref)
     if chem == "3p":     # 5p reads end to end make no 3p junction
         assert (got[0][ts.feed_covered(lens, tp)] > 0).sum() >= 8
@@ -168,8 +199,7 @@ def test_fused_mask_and_merge_equal_jax(edge_reads):
         quals.append(r["qual"])
     port = readscan.ReadScanModel(TorchConfig(), device="cpu")
     ref = j_readscan.ReadScanModel(PipelineConfig())
-    rows, lens, tp = _feed(seqs, quals)
-    tiles3 = ts.tile_scan_plain(torch.from_numpy(rows), tp).numpy()
+    tiles3, lens, tp = _tiles3(seqs, quals)
     dirty = np.zeros(len(seqs), bool)
     dirty[::7] = True
     for d in (np.zeros(len(seqs), bool), dirty):
@@ -306,6 +336,81 @@ def test_model_takes_the_route_rule():
     m._p1f_tiles = True
     tiles3 = m.finish_pass1_full(m.scan_pass1_full_async(seqs, quals))[2]
     assert tiles3.shape == (3, 4) and tiles3.dtype == np.int32
+
+
+def test_chunk_without_covered_reads():
+    """A chunk whose reads all lie outside the feed's range (too short or
+    over 2E): the fused pass 1 feeds and scans nothing (neither body runs;
+    on the card neither kernel launches), every read reports n = 0, and
+    the merge takes the residue's host tiles alone, as the host route."""
+    rng = np.random.default_rng(8)
+    wl = synth.make_whitelist(rng, 8)
+    seqs = [synth.random_seq(rng, L).encode() for L in (0, 40, 315, 609)]
+    seqs += [synth.make_chimera(rng, wl[i], wl[i + 1], cdna_len=700)["seq"]
+             for i in range(4)]
+    quals = [b"I" * len(s) for s in seqs]
+    m = readscan.ReadScanModel(TorchConfig(), device="cpu")
+    m._p1f_tiles = True
+    before = (ts.tile_feed_plain.launches, ts.tile_scan_plain.launches)
+    out, _, tiles3 = m.finish_pass1_full(m.scan_pass1_full_async(seqs, quals))
+    assert (ts.tile_feed_plain.launches, ts.tile_scan_plain.launches) == \
+        before
+    assert tiles3.shape == (3, len(seqs)) and (tiles3[0] == 0).all()
+    assert (tiles3[1:] == -1).all()
+    cov, need = m.tiles_fused_mask(out["true_lens"], np.zeros(len(seqs), bool))
+    assert not cov.any() and need[4:].all()
+    need_idx = np.nonzero(need)[0]
+    got = m.finish_tiles_merged(tiles3, cov, m.internal_tiles_async(
+        [seqs[i] for i in need_idx]), need_idx)
+    assert got == m.finish_internal_tiles(m.internal_tiles_async(seqs))
+    assert len(got[0]) >= 2
+
+
+def _feed_model(codes, lens, idx, p):
+    """A numpy model of csrc/tilefeed.cu's row build: a covered read's
+    pieces staged as they are ([0, E) and the 16-byte pieces from 3E - L),
+    the rest of its staged row garbage; each output word 8 codes read as 8
+    contiguous staged bytes (j or j + 2E - L: a word never straddles E),
+    PAD mapped to N, cut at L, packed high nibble first; the meta words;
+    inert rows for other reads."""
+    E, E2, R = eg.E, 2 * eg.E, ts.ROW_BYTES
+    rng = np.random.default_rng(0)
+    out = np.zeros((len(idx), R), np.uint8)
+    min_len = 2 * p.edge + p.k
+    for i, r in enumerate(idx):
+        L = int(lens[r])
+        if not min_len < L <= E2:
+            out[i, :ts.TILE // 2] = 0x55
+            continue
+        st = rng.integers(0, 256, E2 + 16).astype(np.uint8)   # garbage
+        for c0 in range(0, E2, 16):
+            if c0 < E or c0 + 16 > 3 * E - L:
+                st[c0:c0 + 16] = codes[r, c0:c0 + 16].view(np.uint8)
+        for w in range(ts.TILE // 8):
+            j0 = 8 * w
+            if j0 >= L:
+                out[i, 4 * w:4 * w + 4] = 0x55
+                continue
+            off = j0 if j0 < E else j0 + E2 - L
+            x = st[off:off + 8].copy()
+            x[x == 5] = 4
+            x[np.arange(8) >= L - j0] = 5
+            out[i, 4 * w:4 * w + 4] = (x[0::2] << 4) | x[1::2]
+        own_hi = max(L - p.edge - p.k + 1, 0)
+        meta = np.array([p.edge | own_hi << 16, L, 0, L], np.uint32)
+        out[i, ts.TILE // 2:] = meta.view(np.uint8)
+    return out
+
+
+@pytest.mark.parametrize("index", ["covered", "all"])
+def test_feed_kernel_model_equals_plain(edge_reads, index):
+    """The kernel's row build (numpy model, garbage in the pieces it does
+    not stage) gives tile_feed_plain's rows, byte for byte."""
+    seqs, quals = edge_reads
+    tp = ts.tile_params(TorchConfig())
+    codes, _, lens, _ = eg.encode_two_half(seqs, quals)
+    rows, _, _, idx = _feed(seqs, quals, index=index)
+    np.testing.assert_array_equal(_feed_model(codes, lens, idx, tp), rows)
 
 
 @pytest.mark.parametrize("base", ["A", "T"])
