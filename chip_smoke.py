@@ -44,18 +44,25 @@ Phases (one JSON line each, with its seconds):
             maximum, and at the aligner's gap buckets (GAP_SHAPES: Lc 64,
             128 and 256 at W 32, pairs as `GapBatcher` builds them, each its
             own molecule, with infeasible and empty ones).
-            The UMI distance matrix kernel (`myers_global_rows`) against its
-            plain version (the per-length loop over `myers_global_pairwise`)
-            on three groups (umi_groups): 256 UMIs of 12 nt and 32 of 16 nt
-            (timed), 176 of mixed lengths with N, an empty and 33-nt UMIs
-            (host rows), and 3,000 of 10-14 nt (timed); the whole group call
-            (`_pairwise_ed_device`) against the CPU's, its host us beside
-            the kernel's device_ms, and the wrapper's refusals of wrong
-            dtypes and shapes. Tolerance: exact (integer outputs; mismatches
-            must be 0). Median ms of each over >= 5 timed calls (CUDA
-            events), each call on freshly mutated content; `device_ms` is
-            the device time of a call's launches with no host time in it
-            (CUDA events around calls queued behind a spin kernel),
+            The UMI distance matrix kernel (`myers_global_group`, a group's
+            raw bytes in) against its plain version (on the card: the bytes
+            mapped by dna._ENC, Peq by tensor ops, the per-length loop over
+            `myers_global_pairwise`) on five groups (umi_groups): 256 UMIs
+            of 12 nt and 32 of 16 nt, 176 of mixed lengths with N, an empty
+            and 33-nt UMIs (host rows), 3,000 of 10-14 nt, 8,192 of 12 nt
+            with 3% of 11 or 13 nt (a group above the single-link switch)
+            and one holding every byte value; the whole group call
+            (`_pairwise_ed_device`) against the CPU's (the 8,192 group:
+            against the plain matrix), its host us at 288, 3,000 and 8,192
+            UMIs split into host preparation, upload, launch and kernel,
+            download and host rows (`group_call_split`), beside the
+            kernel's device_ms, and the wrapper's refusals of
+            wrong dtypes, offsets and alignment. Tolerance: exact (integer
+            outputs; mismatches must be 0). Median ms of each over >= 5
+            timed calls (CUDA events), each call on freshly mutated
+            content; `device_ms` is the device time of a call's launches
+            with no host time in it (CUDA events around calls queued behind
+            a spin kernel),
             `burst_ms` the mean of back-to-back calls as the host issues
             them (edge scan, band aligner, tile scan, window search). Beside
             each time stands the kernel's bound on this card (see BOUNDS
@@ -261,9 +268,11 @@ Operation counts, from the kernels' own arithmetic:
     <= 608: its first min(L, E) and its last L - E columns), 4 a covered
     read of index and 4 of its length, and the [C, 528] output rows of
     the C covered reads.
-  pairwise: a (pattern row of 1..32 nt, text) pair is tlens[j] global
-    Myers columns of 18 (pairwise_work); bytes: Peq, lengths and codes of
-    the group read once, the [K, K] int32 matrix written once.
+  pairwise: a (pattern row of 1..32 nt, text) pair is len(j) global
+    Myers columns of 16 and the distance read from the last column, 4
+    (pairwise_work): the column keeps no score, unlike win1's and the
+    sweep's 18; bytes: the group's raw bytes and its K + 1 int32 offsets
+    read once, the [K, K] int32 matrix written once.
   win1: windows x columns x 18; the kernel's column step takes more
     instructions than that (the Myers step, its two match-mask lookups
     a pair of columns and the keyed best), so 18 stays the count.
@@ -320,6 +329,9 @@ N_CONS_PARITY = 2_048
 # chained phase's align step (2,048 reads a call)
 GAP_SHAPES = ((64, 25_823), (128, 2_283), (256, 19))
 UMI_GROUP = ((12, 256), (16, 32))   # pattern length, UMIs of that length
+UMI_BIG = 8_192             # a group above the single-link switch (3,000)
+UMI_BIG_INDEL = 0.03        # its share of 11 or 13 nt UMIs
+GROUP_CALLS = {"g288": 200, "g3000": 20, "g8192": 5}   # group calls timed
 CHAIN_CONTIGS = 2
 CHAIN_CONTIG_LEN = 4_000_000
 CHAIN_GENES = 1_000
@@ -341,6 +353,8 @@ HBM_BYTES_PER_S = 3.35e12
 # ran at 158-171% of that "bound".
 INT32_LANES_PER_SM = 128
 MYERS_OPS = 18
+PAIRWISE_COLUMN_OPS = 16    # a global Myers column that keeps no score
+PAIRWISE_PAIR_OPS = 4       # its distance: two popc and two adds a pair
 BAND_CELL_OPS = 13
 TILE_WORD_OPS = 210         # a 32-column word of the tile detection, k = 15
 EDGE_WORD_OPS = 103         # a 32-column word of an edge run scan, k = 15
@@ -758,7 +772,10 @@ def umi_groups(seed=SEED + 900) -> dict:
     "g288": UMI_GROUP (256 of 12 nt, 32 of 16 nt), the timing group;
     "mixed": 160 UMIs of 10-14 nt, some with N, some equal but for an N,
     an empty UMI and UMIs of 33 nt (rows the host fills); "g3000": 3,000
-    UMIs of 10-14 nt (a group at the single-link threshold)."""
+    UMIs of 10-14 nt (a group at the single-link threshold); "g8192":
+    UMI_BIG UMIs of 12 nt, UMI_BIG_INDEL of them with a base deleted or
+    inserted (a group clustered single-link); "bytes256": 10-16 nt over
+    ACGT, acgt, N and n, with UMIs that hold every byte value 0..255."""
     import numpy as np
 
     from sicelore_tpu_torch.utils import dna
@@ -771,47 +788,94 @@ def umi_groups(seed=SEED + 900) -> dict:
     mixed = rand(160, 10, 14)
     mixed += [u[:4] + b"N" + u[5:] for u in mixed[:12]]
     mixed += [b"", b"ACGTN" * 6 + b"ACG", b"ACGT" * 8 + b"G", b"NNNNNNNNNN"]
-    return {"g288": [u for m, n in UMI_GROUP for u in rand(n, m, m)],
-            "mixed": list(dict.fromkeys(mixed)),
-            "g3000": rand(3_000, 10, 14)}
+    groups = {"g288": [u for m, n in UMI_GROUP for u in rand(n, m, m)],
+              "mixed": list(dict.fromkeys(mixed)),
+              "g3000": rand(3_000, 10, 14)}
+    big = []
+    for u in rand(UMI_BIG, 12, 12):
+        r, p = rng.random(), int(rng.integers(0, 12))
+        if r < UMI_BIG_INDEL / 2:
+            u = u[:p] + u[p + 1:]
+        elif r < UMI_BIG_INDEL:
+            u = u[:p] + b"ACGT"[int(rng.integers(0, 4)):][:1] + u[p:]
+        big.append(u)
+    groups["g8192"] = big
+    alpha = list(b"ACGTACGTacgtNn")
+    odd = [bytes(rng.choice(alpha, int(rng.integers(10, 17))).tolist())
+           for _ in range(120)]
+    allb = rng.permutation(256).astype(np.uint8).tobytes()
+    odd += [allb[i:i + 16] for i in range(0, 256, 16)]
+    odd += [b"AC" + allb[i:i + 9] + b"GT" for i in range(0, 256, 37)]
+    groups["bytes256"] = list(dict.fromkeys(odd))
+    return groups
 
 
-def pairwise_work(mlens, tlens) -> tuple[int, int]:
-    """(operations, bytes) of one group's matrix: every pair of a pattern
-    row of 1..32 nt and a text is tlens[j] global Myers columns (MYERS_OPS
-    each); bytes: the inputs (Peq 16, mlens 4, the texts' codes, tlens 4 a
-    UMI) read once and the [K, K] int32 matrix written once."""
+def pairwise_work(lens) -> tuple[int, int]:
+    """(operations, bytes) of one group's matrix from its UMI lengths:
+    every pair of a pattern row of 1..32 nt and a text is len(text) global
+    Myers columns (PAIRWISE_COLUMN_OPS each) and its distance
+    (PAIRWISE_PAIR_OPS); bytes: the raw bytes and the K + 1 int32 offsets
+    read once, the [K, K] int32 matrix written once."""
     import numpy as np
-    ml, tl = np.asarray(mlens), np.asarray(tlens)
+    ml = np.asarray(lens)
     K = len(ml)
     rows = int(((ml >= 1) & (ml <= 32)).sum())
-    return (rows * int(tl.sum()) * MYERS_OPS,
-            24 * K + int(tl.sum()) + 4 * K * K)
+    return (rows * (int(ml.sum()) * PAIRWISE_COLUMN_OPS
+                    + K * PAIRWISE_PAIR_OPS),
+            int(ml.sum()) + 4 * (K + 1) + 4 * K * K)
 
 
-def pairwise_phase(dev, int32_hz) -> dict:
-    """csrc/pairwise.cu against its plain version (the per-length loop
-    over `myers_global_pairwise`) on the card, element for element, on the
-    umi_groups, each with variants of fresh content (one base of each UMI
-    replaced); times of the timing group and of the 3,000-UMI group; the
-    wrapper's host us, and the host us of one whole group call
-    (`umicluster._pairwise_ed_device`: Peq build, one upload, one launch,
-    one download) beside the kernel's device_ms; the wrapper's checks.
-    Returns {result key: entry}."""
+def group_call_split(umis, dev, calls) -> dict:
+    """Host us of each step of one `umicluster._pairwise_ed_device` call
+    on the card, a sync after each (the median of `calls` calls): host
+    preparation (the join, the offsets, the one buffer), upload, launch
+    and kernel (the wrapper's checks included), download (`to_host`:
+    through pinned memory, in runs of rows above its PINNED_BYTES), host
+    rows."""
     import numpy as np
     import torch
 
     from sicelore_tpu_torch.core import umicluster
     from sicelore_tpu_torch.ops import editdist
-    from sicelore_tpu_torch.utils import dna
-    rng = np.random.default_rng(SEED + 950)
+    K = len(umis)
+    steps = {k: [] for k in ("host_prep", "upload", "launch_kernel",
+                             "download", "host_rows")}
+    for _ in range(calls + 1):
+        t = [time.perf_counter()]
+        buf = editdist.group_buffer(umis)
+        t.append(time.perf_counter())
+        dbuf = torch.from_numpy(buf).to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        d = editdist.myers_global_group(
+            *editdist.group_views(dbuf, K, int(buf[K])), buf[:K + 1])
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        h = umicluster.to_host(d)
+        t.append(time.perf_counter())
+        umicluster.host_rows(h, umis, np.diff(buf[:K + 1]))
+        t.append(time.perf_counter())
+        for k, a, b in zip(steps, t, t[1:]):
+            steps[k].append((b - a) * 1e6)
+        del d, dbuf, h
+    return {k: sorted(v[1:])[len(v[1:]) // 2] for k, v in steps.items()}
 
-    def inputs(umis):
-        L = max(1, max(len(u) for u in umis))
-        tx, tl = dna.encode_batch(umis, L)
-        ml = np.fromiter((len(u) for u in umis), np.int32, len(umis))
-        peq = editdist.build_peq(tx[:, :min(L, 32)])
-        return editdist.pairwise_inputs(peq, ml, tx, tl, dev), ml, tl
+
+def pairwise_phase(dev, int32_hz) -> dict:
+    """csrc/pairwise.cu against its plain version on the card, element for
+    element, on the umi_groups, each with variants of fresh content (one
+    base of each UMI replaced); times of the 288-, 3,000- and 8,192-UMI
+    groups; the host us of one whole group call
+    (`umicluster._pairwise_ed_device`: the group's buffer, one upload, one
+    launch, one download, the host rows) and its split beside the
+    kernel's device_ms; the wrapper's host us and checks. Returns {result
+    key: entry}."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.core import umicluster
+    from sicelore_tpu_torch.ops import editdist
+    rng = np.random.default_rng(SEED + 950)
 
     def variant(umis):
         out = []
@@ -820,54 +884,69 @@ def pairwise_phase(dev, int32_hz) -> dict:
                 c = int(rng.integers(0, len(u)))
                 u = u[:c] + b"ACGT"[int(rng.integers(0, 4)):][:1] + u[c + 1:]
             out.append(u)
-        return inputs(out)[0]
+        return editdist.group_inputs(out, dev)
+
+    def kern(a):
+        return editdist.myers_global_group(*a)
 
     res = {}
     for name, umis in umi_groups().items():
-        args, ml, tl = inputs(umis)
+        args = editdist.group_inputs(umis, dev)
         vars_ = [args] + [variant(umis) for _ in range(TIMED_CALLS)]
         key = f"pairwise_{name}"
-        res[key] = compare(key, lambda a: editdist.myers_global_rows(*a),
-                           lambda a: editdist.myers_global_rows_plain(*a),
+        res[key] = compare(key, kern,
+                           lambda a: editdist.myers_global_group_plain(*a),
                            vars_)
-        ops, nb = pairwise_work(ml, tl)
+        ml = np.fromiter(map(len, umis), np.int32, len(umis))
+        ops, nb = pairwise_work(ml)
         res[key].update(bound(nb, ops, int32_hz))
-        res[key].update({"umis": len(umis), "columns": int(args[2].shape[1]),
+        res[key].update({"umis": len(umis), "raw_bytes": int(ml.sum()),
                          "host_rows": int(((ml == 0) | (ml > 32)).sum()),
                          "lengths": sorted(set(ml.tolist()))})
-        if name != "mixed":
-            res[key]["device_ms"] = device_ms(
-                lambda a: editdist.myers_global_rows(*a), vars_[1:])
-            res[key]["burst_ms"] = burst_ms(
-                lambda a: editdist.myers_global_rows(*a), vars_[1:])
-        # the whole group call against the host's myers_ed rows
+        if name in GROUP_CALLS:
+            res[key]["device_ms"] = device_ms(kern, vars_[1:])
+            res[key]["burst_ms"] = burst_ms(kern, vars_[1:])
+        # the whole group call against the CPU's (host myers_ed rows
+        # included); the 8,192 group (no host row) against the plain matrix
         d = umicluster._pairwise_ed_device(umis, dev)
-        want = umicluster._pairwise_ed_device(umis, "cpu")
+        if name == "g8192":
+            want = editdist.myers_global_group_plain(*args).cpu().numpy()
+        else:
+            want = umicluster._pairwise_ed_device(umis, "cpu")
         res[key]["mismatches"] += int((d != want).sum())
         if name == "mixed":
             hi = [i for i, u in enumerate(umis) if not 1 <= len(u) <= 32]
             res[key]["mismatches"] += sum(
                 int(d[i, j] != umicluster.myers_ed(umis[i], umis[j]))
                 for i in hi for j in range(len(umis)))
-        del vars_
+        del vars_, d, want
+        if name in GROUP_CALLS:
+            res[key]["group_call_us"] = host_us(
+                lambda: umicluster._pairwise_ed_device(umis, dev),
+                GROUP_CALLS[name])
+            res[key]["group_call_split_us"] = group_call_split(
+                umis, dev, GROUP_CALLS[name])
+        torch.cuda.empty_cache()
     g = umi_groups()["g288"]
-    args = inputs(g)[0]
-    res["pairwise_g288"]["wrapper_host_us"] = host_us(
-        lambda: editdist.myers_global_rows(*args))
-    res["pairwise_g288"]["group_call_us"] = host_us(
-        lambda: umicluster._pairwise_ed_device(g, dev), 200)
-    # the wrapper refuses what the kernel does not take
+    args = editdist.group_inputs(g, dev)
+    res["pairwise_g288"]["wrapper_host_us"] = host_us(lambda: kern(args))
+    # the wrapper refuses what the kernel does not take: wrong dtypes, two
+    # devices, no host offsets, offsets that fall or do not end at S, the
+    # same bytes one past a 16-byte boundary
+    raw, offs, ho = args
+    falls = ho.copy()
+    falls[3] = falls[5]
+    shifted = editdist.group_inputs([b"G" + g[0]] + g[1:], dev)[0][1:]
     refused = 0
-    for bad in ((args[0].to(torch.int64),) + args[1:],
-                args[:2] + (args[2].to(torch.int32), args[3]),
-                (args[0][:, :-1],) + args[1:],
-                args[:2] + (args[2][:, :0], args[3])):
+    for bad in ((raw.to(torch.int8), offs, ho), (raw, offs.long(), ho),
+                (raw, offs.cpu(), ho), (raw, offs), (raw, offs, falls),
+                (raw[:-1], offs, ho), (shifted, offs, ho)):
         try:
-            editdist.myers_global_rows(*bad)
+            editdist.myers_global_group(*bad)
         except ValueError:
             refused += 1
     res["pairwise_g288"]["refused"] = refused
-    res["pairwise_g288"]["mismatches"] += 4 - refused
+    res["pairwise_g288"]["mismatches"] += 7 - refused
     return res
 
 
@@ -1656,7 +1735,7 @@ def path_counters():
     return {"edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
             "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan,
             "win1": editdist.myers_win1, "bandalign": poa_cuda.band_align,
-            "pairwise": editdist.myers_global_rows,
+            "pairwise": editdist.myers_global_group,
             "edge_composed": eg.edge_scan2_composed,
             "myers_global_pairwise": editdist.myers_global_pairwise,
             "plain_edgescan": eg.edge_scan2_plain,
@@ -1665,7 +1744,7 @@ def path_counters():
             "plain_tilescan": ts.tile_scan_plain,
             "plain_win1": editdist.myers_win1_plain,
             "plain_bandalign": poa_cuda.band_align_plain,
-            "plain_pairwise": editdist.myers_global_rows_plain,
+            "plain_pairwise": editdist.myers_global_group_plain,
             "plain_consensus_votes": poa_cuda.consensus_votes_plain}
 
 
@@ -3407,25 +3486,28 @@ def _run(pool, wl, cells, work, dev) -> int:
                                            o["max_abs_err"])
         if name == "pairwise":
             # launches: the chained phase's assignumis (one a batched
-            # group); the 3,000-UMI group beside the timing group
-            o = results["pairwise_g3000"]
+            # group); the 3,000- and 8,192-UMI groups beside the timing
+            # group under *_g3000 and *_g8192 keys
             entry.update({"umis": r["umis"], "device_ms": r["device_ms"],
                           "burst_ms": r["burst_ms"],
                           "wrapper_host_us": r["wrapper_host_us"],
                           "group_call_us": r["group_call_us"],
+                          "group_call_split_us": r["group_call_split_us"],
                           "batched_groups_chain": chain["device_ed_calls"],
-                          "batched_groups_run": run_ph["device_ed_calls"],
-                          "ms_g3000": o["ms"],
-                          "device_ms_g3000": o["device_ms"],
-                          "burst_ms_g3000": o["burst_ms"],
-                          "plain_ms_g3000": o["plain_ms"],
-                          "bound_ms_g3000": o["bound_ms"],
-                          "bound_by_g3000": o["bound_by"],
-                          "edge_case_mismatches":
-                              results["pairwise_mixed"]["mismatches"]})
+                          "batched_groups_run": run_ph["device_ed_calls"]})
+            for g in ("g3000", "g8192"):
+                o = results[f"pairwise_{g}"]
+                entry.update({f"{k}_{g}": o[k] for k in (
+                    "ms", "device_ms", "burst_ms", "plain_ms", "bound_ms",
+                    "bound_by", "group_call_us", "group_call_split_us")})
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           o["max_abs_err"])
+            edge = ("mixed", "bytes256")
+            entry["edge_case_mismatches"] = sum(
+                results[f"pairwise_{g}"]["mismatches"] for g in edge)
             entry["max_abs_err"] = max(
-                entry["max_abs_err"], o["max_abs_err"],
-                results["pairwise_mixed"]["max_abs_err"])
+                entry["max_abs_err"],
+                *(results[f"pairwise_{g}"]["max_abs_err"] for g in edge))
         if name == "win1":
             entry.update({"windows": r["windows"], "columns": r["columns"],
                           "device_ms": r["device_ms"],
@@ -3483,9 +3565,10 @@ def _run(pool, wl, cells, work, dev) -> int:
                       "chain_split_s": chain["split_s"],
                       "pairwise_device_ms": {
                           k: results[f"pairwise_{k}"]["device_ms"]
-                          for k in ("g288", "g3000")},
-                      "pairwise_group_call_us":
-                          results["pairwise_g288"]["group_call_us"],
+                          for k in GROUP_CALLS},
+                      "pairwise_group_call_us": {
+                          k: results[f"pairwise_{k}"]["group_call_us"]
+                          for k in GROUP_CALLS},
                       "build_s": _build.build_seconds,
                       "script_s": round(time.time() - T_START, 1)}})
     emit({"kernels": kernels})

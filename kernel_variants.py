@@ -7,12 +7,15 @@ nothing imports it.
     python3 kernel_variants.py tile     # tile scan: block shape, general path
     python3 kernel_variants.py edge     # edge scan: parts, general path, reads a block
     python3 kernel_variants.py feed     # tile feed: group size, blocks an SM
+    python3 kernel_variants.py pairwise # UMI distances: rows a thread, tile
     python3 kernel_variants.py host [--root DIR]   # wrappers' host time
+    python3 kernel_variants.py group [--root DIR]  # a UMI group call's time
 
-band, win1, tile, edge and feed build a copy of csrc/<kernel>.cu once a
-variant, the variant made by exact text replacement (and nvcc -D flags), so
-an edit of the kernel that moves a patched line makes this script fail
-loudly instead of timing something else; all nvcc runs go in parallel. Every
+band, win1, tile, edge, feed and pairwise build a copy of csrc/<kernel>.cu
+once a variant, the variant made by exact text replacement (and nvcc -D
+flags), so an edit of the kernel that moves a patched line makes this script
+fail loudly instead of timing something else; all nvcc runs go in parallel.
+Every
 variant of win1 and tile computes the kernel's results and is checked
 against the plain version first. Times: ms a launch, the least of three
 bursts of REPS launches between two CUDA events; the base variant runs first
@@ -57,6 +60,13 @@ groups to pipeline), checked against the plain version first. Over the
 covered reads of chip_smoke.py's first 3p chunk (its fused route's index),
 in three copies of the codes that launches rotate through.
 
+pairwise: pairwise.cu with R = 1, 2 or 4 pattern rows a thread at every
+group size and 64 or 128 texts a tile (r<R>_t<TT>; base: the source's
+rule, R = 4 where the items fill the card and 2 elsewhere, at 64), checked
+against the plain version first, at chip_smoke.py's 288-, 3,000- and
+8,192-UMI groups; each line carries the group's bound
+(chip_smoke.pairwise_work at this card's SMs and maximum SM clock).
+
 host: chip_smoke.py's `host_us` of each of its `host_calls` (one
 `myers_win1`, one `tile_scan`, one 3p and one 5p `edge_scan2` call) against
 the `sicelore_tpu_torch` under --root (default: this checkout; a tree whose
@@ -64,7 +74,12 @@ edge scan takes text-major [2E, B] codes gets its read transposed). To compare t
 other into a directory that .gitignore lists (`git archive`) and run this
 once with --root there and once without, in one command.
 
-Needs a CUDA GPU (and nvcc for band, win1, tile, edge, feed)."""
+group: chip_smoke.py's `host_us` of one `umicluster._pairwise_ed_device`
+call on the card (its groups of 288, 3,000 and 8,192 UMIs,
+chip_smoke.GROUP_CALLS calls each) for the package under --root, the way
+`host` compares two trees.
+
+Needs a CUDA GPU (and nvcc for band, win1, tile, edge, feed, pairwise)."""
 from __future__ import annotations
 
 import argparse
@@ -203,6 +218,21 @@ def _feed_shape(rpb, bps):
 
 FEED_VARIANTS = {"base": [], **{f"r{r}_b{b}": _feed_shape(r, b) for r, b in (
     (16, 2), (16, 8), (8, 8), (8, 16), (32, 4), (32, 8))}}
+
+
+PAIR_R = ("constexpr int R_WIDE = 4;", "constexpr int R_NARROW = 2;")
+PAIR_TT = "constexpr int TT = 64;"
+
+
+def _pair_shape(r, tt):
+    """R rows a thread at every group size, TT texts a tile."""
+    return [(PAIR_R[0], f"constexpr int R_WIDE = {r};"),
+            (PAIR_R[1], f"constexpr int R_NARROW = {r};"),
+            (PAIR_TT, f"constexpr int TT = {tt};")]
+
+
+PAIR_VARIANTS = {"base": [], **{f"r{r}_t{tt}": _pair_shape(r, tt)
+                                for tt in (64, 128) for r in (1, 2, 4)}}
 
 
 def patched(src: str, reps) -> str:
@@ -493,9 +523,49 @@ def run_feed() -> None:
         fns, launch, check, copies)}), flush=True)
 
 
-def run_host(root: Path) -> None:
+def run_pairwise() -> None:
     import torch
 
+    import chip_smoke
+    from sicelore_tpu_torch.ops import _build, editdist
+    fns = build("pairwise", {k: (r, []) for k, r in PAIR_VARIANTS.items()},
+                "pairwise_launch", 3, 2)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = _build.stream_handle(dev)
+    sm_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0])
+    int32_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * chip_smoke.INT32_LANES_PER_SM * sm_hz)
+    groups = chip_smoke.umi_groups()
+    for name in ("g288", "g3000", "g8192"):
+        umis = groups[name]
+        raw, offs, ho = editdist.group_inputs(umis, dev)
+        K, S = len(umis), raw.numel()
+        ref = editdist.myers_global_group_plain(raw, offs, ho)
+        res = torch.empty_like(ref)
+
+        def launch(k, _):
+            _build.check(fns[k](raw.data_ptr(), offs.data_ptr(),
+                                res.data_ptr(), K, S, stream), k)
+
+        def check(k):
+            res.fill_(-1)
+            launch(k, None)
+            if not torch.equal(res, ref):
+                raise SystemExit(f"kernel_variants: pairwise {k} differs "
+                                 f"from the plain version ({name})")
+        ops, nb = chip_smoke.pairwise_work([len(u) for u in umis])
+        print(json.dumps({"shape": [name, K], "ms": in_turns(
+            fns, launch, check, [None]), **chip_smoke.bound(
+                nb, ops, int32_hz)}), flush=True)
+        del ref, res
+
+
+def _package_under(root: Path):
+    """chip_smoke (this checkout's) with the sicelore_tpu_torch under root
+    first on the path."""
     import chip_smoke                      # puts HERE first on the path
     sys.path.insert(0, str(root))          # the package under test first
     import sicelore_tpu_torch
@@ -503,6 +573,24 @@ def run_host(root: Path) -> None:
         raise SystemExit(f"kernel_variants: imported "
                          f"{sicelore_tpu_torch.__file__}, not the package "
                          f"under {root}")
+    return chip_smoke
+
+
+def run_group(root: Path) -> None:
+    import torch
+    chip_smoke = _package_under(root)
+    from sicelore_tpu_torch.core import umicluster
+    groups = chip_smoke.umi_groups()
+    dev = torch.device("cuda")
+    print(json.dumps({"root": str(root), "group_call_us": {
+        g: chip_smoke.host_us(
+            lambda u=groups[g]: umicluster._pairwise_ed_device(u, dev), n)
+        for g, n in chip_smoke.GROUP_CALLS.items()}}), flush=True)
+
+
+def run_host(root: Path) -> None:
+    import torch
+    chip_smoke = _package_under(root)
     calls = chip_smoke.host_calls(torch.device("cuda"))
     try:
         calls["edgescan"]()
@@ -518,20 +606,22 @@ def run_host(root: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("band", "win1", "tile", "edge", "feed",
-                                     "host"))
+                                     "pairwise", "host", "group"))
     ap.add_argument("--root", default=str(HERE),
-                    help="host: the checkout whose package is timed")
+                    help="host, group: the checkout whose package is timed")
     a = ap.parse_args()
     sys.path.insert(0, str(HERE))
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA GPU", file=sys.stderr)
         return 1
-    if a.what == "host":
-        run_host(Path(a.root).resolve())
+    if a.what in ("host", "group"):
+        {"host": run_host, "group": run_group}[a.what](
+            Path(a.root).resolve())
     else:
         {"band": run_band, "win1": run_win1, "tile": run_tile,
-         "edge": run_edge, "feed": run_feed}[a.what]()
+         "edge": run_edge, "feed": run_feed,
+         "pairwise": run_pairwise}[a.what]()
     return 0
 
 

@@ -18,8 +18,9 @@ and Jar/config.xml:244-278):
 
 Edit distances use scalar Myers bit-parallel (host) for small groups; groups
 of DEVICE_ED_THRESHOLD unique UMIs or more batch through
-ops.editdist.myers_global_rows on the given device (csrc/pairwise.cu on the
-card, one launch a group; its plain torch body on the CPU). The route is
+ops.editdist.myers_global_group on the given device (csrc/pairwise.cu on
+the card from the group's raw bytes, one launch a group; its plain torch
+body on the CPU). The route is
 chosen by the unique-UMI count and never by the device, and each row is
 filled by the same route as in the JAX package: the host rows compare bytes
 (N matches N), the batched rows compare codes (N matches nothing), so a
@@ -91,25 +92,70 @@ def pairwise_ed(umis: list[bytes], use_device: bool | None = None,
 
 def _pairwise_ed_device(umis: list[bytes], device="cuda") -> np.ndarray:
     """Batched route: the global ED of every UMI of 1 <= m <= 32 nt (as a
-    pattern) against ALL UMIs (as texts), every length class in one
-    myers_global_rows call (on the card: one upload, one csrc/pairwise.cu
+    pattern) against ALL UMIs (as texts) in one myers_global_group call on
+    the group's raw bytes (on the card: one upload, one csrc/pairwise.cu
     launch, one download a group); rows of length 0 or over 32 take the
     host myers_ed."""
+    import torch
+
     from sicelore_tpu_torch.ops import editdist
-    from sicelore_tpu_torch.utils import dna
 
     dev = _device.resolve(device)
     K = len(umis)
-    L = max(1, max(len(u) for u in umis))
-    texts, tlens = dna.encode_batch(umis, L)
-    mlens = np.fromiter((len(u) for u in umis), np.int32, K)
-    # a row's codes past its length are PAD, which sets no Peq bit
-    peq = editdist.build_peq(texts[:, :min(L, 32)])
-    d = editdist.myers_global_rows(*editdist.pairwise_inputs(
-        peq, mlens, texts, tlens, dev)).cpu().numpy()
-    for i in np.nonzero((mlens == 0) | (mlens > 32))[0]:
-        for j in range(K):
-            d[i, j] = myers_ed(umis[i], umis[j])
+    buf = editdist.group_buffer(umis)
+    d = editdist.myers_global_group(*editdist.group_views(
+        torch.from_numpy(buf).to(dev), K, int(buf[K])), buf[:K + 1])
+    return host_rows(to_host(d), umis, np.diff(buf[:K + 1]))
+
+
+# the largest pinned block a download takes: the matrix of 8,192 UMIs
+PINNED_BYTES = 256 << 20
+
+
+def to_host(d):
+    """The matrix as a numpy array; a CPU tensor as it is. From the card
+    through pinned memory (a pageable copy ran at ~2.3 GB/s on the H100's
+    host, ~48 GB/s into a pinned block): a matrix of up to PINNED_BYTES in
+    a pinned block of its own, which PyTorch's caching host allocator keeps
+    for the next group of its size class; a larger one a run of rows at a
+    time through one such block (`copy_rows`; the new pageable pages take
+    most of its time, as in a pageable copy). The pinned memory a process
+    keeps stays under 2 x PINNED_BYTES whatever the group's size."""
+    if d.device.type == "cpu":
+        return d.numpy()
+    import torch
+    esize = d.element_size()
+    if d.numel() * esize <= PINNED_BYTES:
+        h = torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
+        h.copy_(d)
+        return h.numpy()
+    stage = torch.empty(max(PINNED_BYTES // esize, d.shape[1]),
+                        dtype=d.dtype, pin_memory=True)
+    return copy_rows(d, stage)
+
+
+def copy_rows(d, stage) -> np.ndarray:
+    """d [K, N] as a numpy array in pageable host memory, copied through
+    `stage` (a 1-D host tensor of d's dtype, at least N long) a run of
+    whole rows at a time."""
+    import torch
+    K, N = d.shape
+    out = torch.empty((K, N), dtype=d.dtype)
+    rows = stage.numel() // max(N, 1)
+    for r0 in range(0, K, rows):
+        n = min(rows, K - r0)
+        s = stage[:n * N].view(n, N)
+        s.copy_(d[r0:r0 + n])
+        out[r0:r0 + n].copy_(s)
+    return out.numpy()
+
+
+def host_rows(d: np.ndarray, umis: list[bytes], lens) -> np.ndarray:
+    """Fill the rows of d of the UMIs of 0 or over 32 nt (lens: their
+    lengths) with the host myers_ed (bytes: N matches N), as the JAX route
+    does; returns d."""
+    for i in np.nonzero((lens == 0) | (lens > 32))[0].tolist():
+        d[i] = [myers_ed(umis[i], v) for v in umis]
     return d
 
 

@@ -1,6 +1,7 @@
 """Myers bit-parallel edit distance: the semi-global sweep and the global
 pairwise matrix in plain PyTorch, the single-pattern window search kernel
-(csrc/win1.cu) and the UMI distance matrix kernel (csrc/pairwise.cu).
+(csrc/win1.cu) and the UMI distance matrix kernel (csrc/pairwise.cu), which
+takes a group's raw bytes.
 
 Port of `sicelore_tpu/ops/editdist.py` (`build_peq`, the Hyyrö column update,
 `_eq_select`, `myers_sweep`, `best_two`, `myers_global_pairwise`,
@@ -281,30 +282,46 @@ def myers_global_pairwise(peq_g: np.ndarray, texts: torch.Tensor,
 myers_global_pairwise.launches = 0
 
 
-def pairwise_inputs(peq: np.ndarray, mlens: np.ndarray, texts: np.ndarray,
-                    tlens: np.ndarray, device):
-    """One group's inputs of `myers_global_rows` on `device` in one upload:
-    peq [4, K] uint32, mlens [K], texts [K, L] int8 codes and tlens [K] are
-    packed into one int32 buffer on the host, copied once, and returned as
-    views of it (peq as int32 [4, K], mlens and tlens int32 [K], texts int8
-    [K, L])."""
-    K, L = texts.shape
-    nw = (K * L + 3) // 4 + 1      # + 1: the texts' view is never empty
-    buf = np.zeros(6 * K + nw, np.int32)
-    buf[:4 * K] = np.ascontiguousarray(peq, np.uint32).view(np.int32).ravel()
-    buf[4 * K:5 * K] = mlens
-    buf[5 * K:6 * K] = tlens
-    buf[6 * K:].view(np.int8)[:K * L] = np.ascontiguousarray(texts).ravel()
-    t = torch.from_numpy(buf).to(device)
-    return (t[:4 * K].view(4, K), t[4 * K:5 * K], t[6 * K:].view(
-        torch.int8)[:K * L].view(K, L), t[5 * K:6 * K])
+def group_buffer(umis: list[bytes]) -> np.ndarray:
+    """A UMI group as one int32 host buffer: its offsets (the cumulative
+    sum of the lengths, K + 1 words padded to 16 bytes), then its UMIs
+    joined. `group_views` cuts it into `myers_global_group`'s inputs."""
+    K = len(umis)
+    raw = b"".join(umis)
+    no = (K + 4) // 4 * 4
+    buf = np.zeros(no + (len(raw) + 3) // 4, np.int32)
+    np.cumsum(np.fromiter(map(len, umis), np.int32, K), out=buf[1:K + 1])
+    buf.view(np.uint8)[4 * no:4 * no + len(raw)] = np.frombuffer(raw,
+                                                                 np.uint8)
+    return buf
+
+
+def group_views(buf: torch.Tensor, K: int, S: int):
+    """(raw uint8 [S], offs int32 [K + 1]): views of a `group_buffer` of K
+    UMIs of S bytes in all, on its device, both 16-byte aligned."""
+    no = (K + 4) // 4 * 4
+    return buf.view(torch.uint8)[4 * no:4 * no + S], buf[:K + 1]
+
+
+def group_inputs(umis: list[bytes], device):
+    """A UMI group's inputs of `myers_global_group` on `device` in one
+    upload: (raw, offs) of its `group_buffer`, copied once, and the
+    offsets on the host (host_offs), which the checks read."""
+    buf = group_buffer(umis)
+    K = len(umis)
+    return (*group_views(torch.from_numpy(buf).to(device), K, int(buf[K])),
+            buf[:K + 1])
 
 
 def myers_global_rows_plain(peq: torch.Tensor, mlens: torch.Tensor,
                             texts: torch.Tensor, tlens: torch.Tensor):
-    """Plain version of `myers_global_rows`: one `myers_global_pairwise`
-    call for each pattern length of 1..32 nt among the rows; the other rows
-    stay 0."""
+    """The distance rows of a group, every pattern length at once: peq [4,
+    K] int32 (the uint32 Peq bits of `build_peq`, row i's pattern in column
+    i), mlens [K] the pattern lengths, texts [K, L] int8 codes and tlens
+    [K] the text lengths. Returns d [K, K] int32, d[i, j] = the global
+    distance of pattern i against text j: one `myers_global_pairwise` call
+    for each pattern length of 1..32 nt among the rows; the other rows stay
+    0. The oracle under `myers_global_group_plain`."""
     myers_global_rows_plain.launches += 1
     K = texts.shape[0]
     d = torch.zeros((K, K), dtype=torch.int32, device=texts.device)
@@ -323,44 +340,102 @@ def myers_global_rows_plain(peq: torch.Tensor, mlens: torch.Tensor,
 myers_global_rows_plain.launches = 0
 
 
-def myers_global_rows(peq: torch.Tensor, mlens: torch.Tensor,
-                      texts: torch.Tensor, tlens: torch.Tensor):
-    """The UMI distance matrix of one group, every pattern length at once.
+def _group_sizes(raw: torch.Tensor, offs: torch.Tensor,
+                 host_offs=None) -> tuple[int, int]:
+    """(K, S) of `myers_global_group`'s inputs; raises ValueError on what
+    it does not take. The offsets' values are checked in `host_offs` (the
+    same offsets on the host, a numpy array or a CPU tensor; by default
+    `offs` itself where it lies on the CPU): a CUDA call that read `offs`
+    back would wait for the card."""
+    if raw.dim() != 1 or raw.dtype != torch.uint8:
+        raise ValueError(f"raw must be uint8 [S], got {raw.dtype} "
+                         f"{tuple(raw.shape)}")
+    if offs.dim() != 1 or offs.numel() < 1 or offs.dtype != torch.int32:
+        raise ValueError(f"offs must be int32 [K + 1], got {offs.dtype} "
+                         f"{tuple(offs.shape)}")
+    if raw.device != offs.device:
+        raise ValueError(f"raw and offs must be on one device, got "
+                         f"{raw.device} and {offs.device}")
+    if host_offs is None:
+        if offs.device.type != "cpu":
+            raise ValueError(f"offs on {offs.device} need host_offs, the "
+                             f"same offsets on the host")
+        host_offs = offs
+    o = np.asarray(host_offs)
+    if o.shape != tuple(offs.shape):
+        raise ValueError(f"host_offs must be offs on the host, got shape "
+                         f"{o.shape} for {tuple(offs.shape)}")
+    S = raw.numel()
+    falls = int((o[1:] < o[:-1]).sum())
+    if o[0] != 0 or o[-1] != S or falls:
+        raise ValueError(f"offs must rise from 0 to S = {S} without a "
+                         f"fall, got {o[0]} .. {o[-1]} with {falls} falls")
+    return offs.numel() - 1, S
 
-    peq [4, K] int32 (the uint32 Peq bits of `build_peq`, row i's pattern
-    in column i), mlens [K] int32 the pattern lengths, texts [K, L] int8
-    codes (L >= 1), tlens [K] int32 the true text lengths (0..L). Returns d
-    [K, K] int32: d[i, j] = the global distance of pattern i against text
-    j, as `myers_global_pairwise` gives it (N and PAD match nothing; the
-    score after column tlens[j]); rows with mlens outside 1..32 are 0 (the
-    caller's host rows). CPU tensors take the plain version; CUDA tensors
-    launch csrc/pairwise.cu (all on one device, contiguous)."""
-    if texts.dim() != 2 or texts.shape[1] < 1:
-        raise ValueError(f"texts must be [K, L >= 1], "
-                         f"got {tuple(texts.shape)}")
-    K = texts.shape[0]
-    if (peq.shape != (4, K) or mlens.shape != (K,)
-            or tlens.shape != (K,)):
-        raise ValueError(f"peq must be [4, K], mlens and tlens [K] for K = "
-                         f"{K}, got {tuple(peq.shape)}, "
-                         f"{tuple(mlens.shape)}, {tuple(tlens.shape)}")
-    if texts.device.type == "cpu":
-        return myers_global_rows_plain(peq, mlens, texts, tlens)
-    if (peq.dtype, mlens.dtype, texts.dtype, tlens.dtype) != (
-            torch.int32, torch.int32, torch.int8, torch.int32):
-        raise ValueError("peq, mlens and tlens must be int32, texts int8")
-    ts = (peq, mlens, texts, tlens)
-    if any(t.device != texts.device or not t.is_contiguous() for t in ts):
-        raise ValueError("the inputs must be contiguous, on one device")
-    out = torch.empty((K, K), dtype=torch.int32, device=texts.device)
+
+def myers_global_group_plain(raw: torch.Tensor, offs: torch.Tensor,
+                             host_offs=None):
+    """Plain version of `myers_global_group`: the bytes mapped by
+    `dna._ENC` as an index, Peq built with tensor ops, then
+    `myers_global_rows_plain` (a `myers_global_pairwise` call a pattern
+    length)."""
+    myers_global_group_plain.launches += 1
+    K, S = _group_sizes(raw, offs, host_offs)
+    dev = raw.device
+    o = offs.long()
+    lens = o[1:] - o[:-1]
+    L = max(1, int(lens.max())) if K else 1
+    col = torch.arange(L, device=dev)
+    inside = col[None, :] < lens[:, None]
+    pos = (o[:-1, None] + col[None, :]).clamp(max=max(S - 1, 0))
+    byte = raw[pos].long() if S else torch.zeros_like(pos)
+    enc = torch.from_numpy(dna._ENC).to(dev)
+    texts = torch.where(inside, enc[byte], dna.PAD)
+    m32 = min(L, 32)
+    hit = texts[:, :m32, None] == torch.arange(4, device=dev)
+    peq = (hit.long() << col[:m32, None]).sum(1).T       # [4, K] uint32 bits
+    peq = torch.where(peq >= 2**31, peq - 2**32, peq).to(torch.int32)
+    return myers_global_rows_plain(peq, lens.int(), texts, lens.int())
+
+
+myers_global_group_plain.launches = 0
+
+
+def myers_global_group(raw: torch.Tensor, offs: torch.Tensor,
+                       host_offs=None):
+    """The UMI distance matrix of one group from its raw bytes.
+
+    raw uint8 [S], the group's UMIs concatenated; offs int32 [K + 1], their
+    offsets (from 0, non-decreasing, ending at S); host_offs, the same
+    offsets on the host, which the checks read (needed where offs lies on
+    the card; `group_inputs` gives all three). Bytes map as `dna._ENC` (A,
+    C, G, T in either case to 0..3, every other byte to N, which matches
+    nothing); texts of any length. Returns d [K, K] int32: d[i, j] = the
+    global distance of UMI i as a pattern against UMI j as a text; rows
+    whose pattern is outside 1..32 nt hold 0 (the caller's host rows).
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/pairwise.cu (contiguous, both 16-byte aligned), with no wait for
+    the card."""
+    if raw.device.type == "cpu":
+        return myers_global_group_plain(raw, offs, host_offs)
+    K, S = _group_sizes(raw, offs, host_offs)
+    if not (raw.is_contiguous() and offs.is_contiguous()) or (
+            raw.data_ptr() % 16 or offs.data_ptr() % 16):
+        raise ValueError("raw and offs must be contiguous and 16-byte "
+                         "aligned")
+    out = torch.empty((K, K), dtype=torch.int32, device=raw.device)
     if K == 0:
         return out
-    fn = _build.bind("pairwise", "pairwise_launch", 5, 2)
-    _build.launch(fn, "pairwise", texts.device, peq.data_ptr(),
-                  mlens.data_ptr(), texts.data_ptr(), tlens.data_ptr(),
-                  out.data_ptr(), K, texts.shape[1])
-    myers_global_rows.launches += 1
+    fn = _build.bind("pairwise", "pairwise_launch", 3, 2)
+    _build.launch(fn, "pairwise", raw.device, raw.data_ptr(),
+                  offs.data_ptr(), out.data_ptr(), K, S)
+    myers_global_group.launches += 1
+    return out
+    fn = _build.bind("pairwise", "pairwise_launch", 3, 2)
+    _build.launch(fn, "pairwise", raw.device, raw.data_ptr(),
+                  offs.data_ptr(), out.data_ptr(), K, S)
+    myers_global_group.launches += 1
     return out
 
 
-myers_global_rows.launches = 0
+myers_global_group.launches = 0

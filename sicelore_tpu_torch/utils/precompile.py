@@ -44,7 +44,7 @@ def _counters():
     return {"edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
             "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan,
             "win1": editdist.myers_win1, "bandalign": poa_cuda.band_align,
-            "pairwise": editdist.myers_global_rows}
+            "pairwise": editdist.myers_global_group}
 
 
 def _reads(rng, n: int, length: int) -> list[bytes]:

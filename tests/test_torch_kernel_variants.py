@@ -19,6 +19,7 @@ SETS = {
     "edgescan": (kv.EDGE_PATCHES,
                  {k: reps for k, (reps, _) in kv.EDGE_VARIANTS.items()}),
     "tilefeed": ((), kv.FEED_VARIANTS),
+    "pairwise": ((), kv.PAIR_VARIANTS),
 }
 
 

@@ -632,14 +632,14 @@ def test_pairwise_ed_cuda_matches_cpu(dev):
         [dna.decode(rng.integers(0, 4, int(rng.integers(10, 17)))).encode()
          for _ in range(200)]
         + [b"", b"ACGTN" * 7, b"ACGTN" * 6, b"AAAANCCCCGGGG"]))
-    before = (editdist.myers_global_rows.launches,
+    before = (editdist.myers_global_group.launches,
               editdist.myers_global_pairwise.launches,
-              editdist.myers_global_rows_plain.launches)
+              editdist.myers_global_group_plain.launches)
     got = umicluster.pairwise_ed(umis, device="cuda")
     # one kernel launch for the group, every length class in it; no plain
-    assert (editdist.myers_global_rows.launches,
+    assert (editdist.myers_global_group.launches,
             editdist.myers_global_pairwise.launches,
-            editdist.myers_global_rows_plain.launches) == \
+            editdist.myers_global_group_plain.launches) == \
         (before[0] + 1, before[1], before[2])
     np.testing.assert_array_equal(got,
                                   umicluster.pairwise_ed(umis, device="cpu"))
@@ -650,50 +650,89 @@ def test_pairwise_ed_cuda_matches_cpu(dev):
         [(c.center, c.members) for c in b]
 
 
-@pytest.mark.parametrize("group", ["g288", "mixed", "g3000"])
-def test_pairwise_kernel_matches_plain(dev, group):
-    """csrc/pairwise.cu against myers_global_rows_plain, element for
-    element, on chip_smoke.py's groups: 256 UMIs of 12 nt and 32 of 16 nt,
-    mixed lengths with N, an empty and 33-nt UMIs (their rows 0), and
-    3,000 UMIs of 10-14 nt."""
-    umis = chip_smoke.umi_groups()[group]
-    L = max(len(u) for u in umis)
-    tx, tl = dna.encode_batch(umis, L)
-    ml = np.fromiter((len(u) for u in umis), np.int32, len(umis))
-    peq = editdist.build_peq(tx[:, :min(L, 32)])
-    args = editdist.pairwise_inputs(peq, ml, tx, tl, dev)
-    before = editdist.myers_global_rows.launches
-    got = editdist.myers_global_rows(*args)
+def _group_vs_plain(umis, dev):
+    args = editdist.group_inputs(umis, dev)
+    before = editdist.myers_global_group.launches
+    got = editdist.myers_global_group(*args)
     torch.cuda.synchronize()
-    assert editdist.myers_global_rows.launches == before + 1
-    want = editdist.myers_global_rows_plain(*args)
+    assert editdist.myers_global_group.launches == before + (len(umis) > 0)
+    want = editdist.myers_global_group_plain(*args)
     assert got.dtype == torch.int32 and got.shape == (len(umis),) * 2
     assert torch.equal(got, want)
-    host = (ml == 0) | (ml > 32)
-    assert (got.cpu().numpy()[host] == 0).all()
+    ml = np.fromiter(map(len, umis), np.int32, len(umis))
+    assert (got.cpu().numpy()[(ml == 0) | (ml > 32)] == 0).all()
+
+
+@pytest.mark.parametrize("group", ["g288", "mixed", "g3000", "g8192",
+                                   "bytes256"])
+def test_pairwise_kernel_matches_plain(dev, group):
+    """csrc/pairwise.cu against myers_global_group_plain (on the card),
+    element for element, on chip_smoke.py's groups: 256 UMIs of 12 nt and
+    32 of 16 nt, mixed lengths with N, an empty and 33-nt UMIs (their rows
+    0), 3,000 UMIs of 10-14 nt, 8,192 of 12 nt with indels, and a group
+    holding every byte value (each mapped as dna._ENC)."""
+    _group_vs_plain(chip_smoke.umi_groups()[group], dev)
+
+
+@pytest.mark.parametrize("n", [1, 37, 163, 1537])
+def test_pairwise_kernel_partial_tiles(dev, n):
+    """Launches whose last row and text tiles end inside a warp, on UMIs
+    of 1-32 nt with N, lowercase and empty ones, and the same with texts
+    of 40-90 nt (a tile too long for the staging buffer reads global
+    memory); 1,537 UMIs fill an H100 at 4 rows a thread, the rest take 2."""
+    rng = np.random.default_rng(n)
+    umis = [bytes(rng.choice(list(b"ACGTACGTacgtN"), int(rng.integers(
+        0, 33))).tolist()) for _ in range(n)]
+    _group_vs_plain(umis, dev)
+    long = [dna.decode(rng.integers(0, 4, int(rng.integers(40, 90))))
+            .encode() for _ in range(n)]
+    _group_vs_plain([u for p in zip(umis, long) for u in p], dev)
 
 
 def test_pairwise_kernel_rejects_other_inputs(dev):
     umis = chip_smoke.umi_groups()["mixed"][:40]
-    tx, tl = dna.encode_batch(umis, max(len(u) for u in umis))
-    ml = np.fromiter((len(u) for u in umis), np.int32, len(umis))
-    args = editdist.pairwise_inputs(editdist.build_peq(tx[:, :32]), ml, tx,
-                                    tl, dev)
-    for bad, what in (((args[0].long(),) + args[1:], "int32"),
-                      (args[:2] + (args[2].int(), args[3]), "int8"),
-                      ((args[0][:, :-1],) + args[1:], "peq must be"),
-                      (args[:3] + (args[3][:-1],), "tlens"),
-                      (args[:2] + (args[2][:, :0], args[3]), "L >= 1"),
-                      (args[:2] + (args[2].t().contiguous().t(), args[3]),
-                       "contiguous"),
-                      (args[:3] + (args[3].cpu(),), "one device")):
+    raw, offs, ho = editdist.group_inputs(umis, dev)
+    falls = ho.copy()
+    falls[3] = falls[5]
+    # the same bytes one past a 16-byte boundary
+    shifted = editdist.group_inputs([b"G" + umis[0]] + umis[1:], dev)[0][1:]
+    for bad, what in (((raw.to(torch.int8), offs, ho), "raw must be"),
+                      ((raw, offs.long(), ho), "offs must be int32"),
+                      ((raw, offs.cpu(), ho), "one device"),
+                      ((raw, offs), "need host_offs"),
+                      ((raw, offs, ho[:-1]), "host_offs must be"),
+                      ((raw, offs, falls), "without a fall"),
+                      ((raw[:-1], offs, ho), "to S"),
+                      ((shifted, offs, ho), "16-byte aligned"),
+                      ((raw, torch.stack((offs, offs), 1)[:, 0], ho),
+                       "contiguous")):
         with pytest.raises(ValueError, match=what):
-            editdist.myers_global_rows(*bad)
+            editdist.myers_global_group(*bad)
     # an empty group launches nothing
-    e = editdist.pairwise_inputs(np.zeros((4, 0), np.uint32),
-                                 np.zeros(0, np.int32),
-                                 np.zeros((0, 1), np.int8),
-                                 np.zeros(0, np.int32), dev)
-    before = editdist.myers_global_rows.launches
-    assert editdist.myers_global_rows(*e).shape == (0, 0)
-    assert editdist.myers_global_rows.launches == before
+    before = editdist.myers_global_group.launches
+    assert editdist.myers_global_group(
+        *editdist.group_inputs([], dev)).shape == (0, 0)
+    assert editdist.myers_global_group.launches == before
+
+
+@pytest.mark.parametrize("K", [45, 8200])
+def test_pairwise_download_above_pinned_bytes(dev, monkeypatch, K):
+    """A matrix over PINNED_BYTES comes down a run of rows at a time
+    through one pinned block, equal to a plain copy and writeable (the host
+    rows go into it): 8,200 x 8,200 is over the limit as it is; at 45 the
+    limit is cut to 7 rows (runs of 7, the last one short), and the group
+    call through it equals the CPU's."""
+    from sicelore_tpu_torch.core import umicluster
+
+    d = torch.randint(-9, 99, (K, K), dtype=torch.int32, device=dev)
+    if K == 45:
+        monkeypatch.setattr(umicluster, "PINNED_BYTES", 7 * 45 * 4)
+    assert d.numel() * 4 > umicluster.PINNED_BYTES
+    got = umicluster.to_host(d)
+    assert got.dtype == np.int32 and got.flags.writeable
+    np.testing.assert_array_equal(got, d.cpu().numpy())
+    if K == 45:
+        umis = chip_smoke.umi_groups()["mixed"]
+        np.testing.assert_array_equal(
+            umicluster._pairwise_ed_device(umis, dev),
+            umicluster._pairwise_ed_device(umis, "cpu"))
