@@ -6,7 +6,19 @@ Phases (one JSON line each, with its seconds):
   env       nvidia-smi name and power limit, torch/CUDA/nvcc versions,
             whether the native host codecs loaded, the kernel build time.
   kernels   every CUDA kernel against its plain PyTorch version on the card,
-            at the main paths' shapes: the edge scan over a 32,768-read 3p
+            at the main paths' shapes: the read encoding (csrc/encode.cu,
+            both entries: the two-half rows, qv2 and qsum of the v2 passes,
+            the v1 composite rows and qv) over a 32,768-read 3p chunk and a
+            32,768-read 5p chunk (fresh content each call; device_ms,
+            burst_ms, the bound and its share; the host us of a whole chunk
+            encode, `encode_call`, split into join, stage, upload, kernel
+            and download, beside the numpy `encode_two_half` on the same
+            reads), over its edge set (encode_edge_reads: every length
+            class around E and 2E, every byte value in sequences and
+            qualities, qualities shorter and longer than their read) in one
+            launch and in spans of 1, 36 and the rest (rebased offsets),
+            through the pinned and the pageable staging, each also against
+            the numpy oracles, and the wrappers' refusals; the edge scan over a 32,768-read 3p
             chunk and a 32,768-read 5p chunk (encode_two_half's rows [B, 2E]
             as they are), and over the edge set (edge_set_reads: lengths 0,
             under k, E, 2E and over 2E, all-N reads, runs at win_p and at
@@ -76,7 +88,8 @@ Phases (one JSON line each, with its seconds):
             65,536-barcode whitelist; 4% error, ~6% 2-8 kb reads, ~2%
             chimeras, ~2% garbage, ~1% with N near an end), cached pass 1,
             32,768-read chunks. Launch counts are zeroed just before and
-            read just after: every kernel must have launched, the tile feed
+            read just after: every kernel must have launched, the read
+            encoding (every v2 pass encodes on the card) and the tile feed
             included (the cached pass 1 on one card scans the interiors of
             the reads of 316-608 bases from its own upload; the tile scan
             then runs once on the feed's rows and once on the host tiles of
@@ -97,13 +110,15 @@ Phases (one JSON line each, with its seconds):
   v1_control  the random-barcode negative control (`random_barcode=True`,
             fixed seed, max ED 1) over one 3p file of 32,768 reads on `cuda`:
             the synchronous pass 2 (`pass2_chunk`: `split_chimeras`, the v1
-            composite scan `scan_reads`, `bc_search`). The falsely assigned
+            composite scan `scan_reads`, whose composite rows the encode
+            kernel's second entry writes, `bc_search`). The falsely assigned
             share of the stranded reads must be under 5%; CUDA == CPU bytes
             on a 4,096-read subset with the same seed.
   scanfastq_split  the 3p, 5p and control runs once more, each with a timer
             (and a device sync) around every stage: seconds by stage (the
-            host tile build of the residue, `build_tiles`, apart from the
-            tile feed).
+            read encoding as join, stage, upload and kernel, the downloads
+            apart; the host tile build of the residue, `build_tiles`, apart
+            from the tile feed).
   empty_used_list  a whitelist that shares no barcode with the reads, on
             `cuda` and `cpu`: pass 1 finds nothing, pass 2 is `pass2_chunk`,
             nothing is assigned, the bytes agree.
@@ -263,6 +278,12 @@ Operation counts, from the kernels' own arithmetic:
     (two columns each) of the union of the columns those windows read and
     the confirm windows' columns inside [0, tlen) (the rest is PAD, known
     from tlen), and the [3, T] int32 output.
+  encode (both entries): no operations worth a bound (it moves bytes,
+    about ten integer operations a column): bytes only, the bytes of each
+    read and of its quality string that a row takes (min(L, 2E) and
+    min(Lq, 2E): a two-half row's head and tail overlap below 2E), the
+    two int64 offset arrays, and the [B, 2E] codes and qv rows written
+    (and qsum, 4 a read, of the two-half entry).
   tilefeed: no operations worth a bound (it moves bytes): bytes only, the
     code bytes its covered reads' tiles need (L of each read with 315 < L
     <= 608: its first min(L, E) and its last L - E columns), 4 a covered
@@ -283,7 +304,7 @@ Operation counts, from the kernels' own arithmetic:
     bookkeeping, shuffles and the traceback (1/W of the cells) are not
     counted; clen is this run's, not Lc (at the gap shapes, each pair's
     own ref segment).
-No PyTorch call computes any of the seven functions: `library_ms` is
+No PyTorch call computes any of the nine functions: `library_ms` is
 null.
 """
 from __future__ import annotations
@@ -362,6 +383,8 @@ EDGE_RUN_BITSLICE_OPS = 29  # a column of the bit-sliced longest run
 EDGE_PAIR_OPS = 2           # a column of one bailout threshold pair
 TILE_EDGE_N = 129           # edge tiles: four blocks of 32 and one of 1
 HOST_CALLS = 1_000          # wrapper calls timed on the host clock
+ENCODE_CALLS = 5            # whole chunk encodes timed
+ENCODE_LONG = 4_000         # the encode edge set's longest read
 SPIN_CYCLES = 1 << 24       # device_ms's first spin: ~8.5 ms at 1.98 GHz
 
 
@@ -950,6 +973,217 @@ def pairwise_phase(dev, int32_hz) -> dict:
     return res
 
 
+def encode_edge_reads(rng):
+    """Reads the read encoding could get wrong: lengths 0, 1, under E, E -
+    1, E, E + 1, between E and 2E, 2E - 1, 2E, 2E + 1 and far past 2E, each
+    with a quality string of its length, one shorter (by 1, by E, empty) and
+    one longer (by 1, by E); sequences over every byte value (NUL inside a
+    read, lowercase, N) or over ACGTacgtN and NUL; qualities over every
+    byte value (below '!', and above 160, where qv2 wraps); reads holding
+    every byte value at both ends. Returns (seqs, quals)."""
+    import numpy as np
+
+    from sicelore_tpu_torch.ops.edgescan import E
+    pool = np.frombuffer(b"ACGTacgtN\x00", np.uint8)
+    seqs, quals = [], []
+    for i, L in enumerate((0, 1, 7, E - 1, E, E + 1, 450, 2 * E - 1, 2 * E,
+                           2 * E + 1, 3 * E + 5, ENCODE_LONG)):
+        for j, dq in enumerate((0, -1, 1, -E, E, -L)):
+            s = rng.integers(0, 256, L) if (i + j) % 2 else \
+                rng.choice(pool, L)
+            seqs.append(s.astype(np.uint8).tobytes())
+            quals.append(rng.integers(0, 256, max(L + dq, 0))
+                         .astype(np.uint8).tobytes())
+    allb = rng.permutation(256).astype(np.uint8).tobytes()
+    for s, q in ((allb, allb[::-1]), (allb * 3, allb * 3),
+                 (b"ACGT" * 100 + allb, allb + b"I" * 400)):
+        seqs.append(s)
+        quals.append(q)
+    return seqs, quals
+
+
+def encode_bytes(inp, two_half: bool) -> int:
+    """The bytes an encode of these inputs must move (BOUNDS, encode)."""
+    import numpy as np
+
+    from sicelore_tpu_torch.ops.edgescan import E
+    L, Lq = np.diff(inp.host_soffs), np.diff(inp.host_qoffs)
+    B = len(L)
+    return int(np.minimum(L, 2 * E).sum() + np.minimum(Lq, 2 * E).sum()
+               + 2 * 8 * (B + 1) + B * 2 * 2 * E + (4 * B if two_half else 0))
+
+
+def encode_variants(inp, g, n):
+    """n copies of the inputs with fresh content: about one byte in 64 of
+    the sequences and of the qualities replaced by a random byte (the
+    offsets as they are)."""
+    import torch
+    out = []
+    for _ in range(n):
+        v = {}
+        for k in ("seq", "qual"):
+            t = getattr(inp, k).clone()
+            m = torch.rand(t.shape, device=t.device, generator=g) < 1 / 64
+            t[m] = torch.randint(0, 256, t.shape, device=t.device,
+                                 generator=g, dtype=torch.uint8)[m]
+            v[k] = t
+        out.append(inp._replace(**v))
+    return out
+
+
+def encode_call(seqs, quals, dev):
+    """One chunk's encode as the v2 passes run it (one shard): the join,
+    the staging, the upload, the kernel, and qv2 and qsum down; returns
+    them on the host."""
+    from sicelore_tpu_torch.models import readscan
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    inp = enc.Staged(enc.join(seqs, quals), [(0, len(seqs))],
+                    "cuda").upload(dev, 0, len(seqs))
+    _, qv2, qsum = enc.encode_two_half_dev(*inp)
+    hs = [readscan._to_host_async(t) for t in (qv2, qsum)]
+    return [readscan._host(h) for h in hs]
+
+
+def encode_call_split(seqs, quals, dev, calls) -> dict:
+    """Host us of each step of `encode_call`, a sync after each (the median
+    of `calls` calls): join, stage (into the pinned buffer), upload, kernel
+    (the wrapper's checks included), download (qv2 and qsum); beside
+    `whole`, the median us of `encode_call` with no sync between steps,
+    and `numpy_encode_two_half`, the median us of the numpy encoder on the
+    same reads (three calls)."""
+    import torch
+
+    from sicelore_tpu_torch.models import readscan
+    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    B = len(seqs)
+    steps = {k: [] for k in ("join", "stage", "upload", "kernel",
+                             "download")}
+    whole, numpy_us = [], []
+    for _ in range(calls + 1):
+        t = [time.perf_counter()]
+        ch = enc.join(seqs, quals)
+        t.append(time.perf_counter())
+        st = enc.Staged(ch, [(0, B)], "cuda")
+        t.append(time.perf_counter())
+        inp = st.upload(dev, 0, B)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        _, qv2, qsum = enc.encode_two_half_dev(*inp)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for h in [readscan._to_host_async(x) for x in (qv2, qsum)]:
+            readscan._host(h)
+        t.append(time.perf_counter())
+        for k, a, b in zip(steps, t, t[1:]):
+            steps[k].append((b - a) * 1e6)
+        t0 = time.perf_counter()
+        encode_call(seqs, quals, dev)
+        whole.append((time.perf_counter() - t0) * 1e6)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eg.encode_two_half(seqs, quals)
+        numpy_us.append((time.perf_counter() - t0) * 1e6)
+    med = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+    return {**{k: med(v[1:]) for k, v in steps.items()},
+            "whole": med(whole[1:]), "numpy_encode_two_half": med(numpy_us)}
+
+
+def encode_phase(dev, chunks, int32_hz) -> dict:
+    """csrc/encode.cu's two entries against their plain versions on the
+    card, byte for byte: on each chunk of `chunks` ({tag: (seqs, quals)},
+    32,768 reads each) with fresh content a call, its device_ms, burst_ms
+    and bound, and the host us of a whole chunk encode and its split beside
+    the numpy encoder's (two-half entry); on encode_edge_reads in one launch
+    and in spans of 1, 36 and the rest (rebased offsets), both also
+    against the numpy oracles and through the pageable copy of a chunk over
+    the staging bound; the wrappers' refusals. Returns {result key:
+    entry}."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.models import readscan
+    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1100)
+    res = {}
+    for tag, (seqs, quals) in chunks.items():
+        inp = enc.chunk_inputs(seqs, quals, dev)
+        vars_ = [inp] + encode_variants(inp, g, TIMED_CALLS)
+        for entry in ("two_half", "composite"):
+            kern = getattr(enc, f"encode_{entry}_dev")
+            plain = getattr(enc, f"encode_{entry}_plain")
+            key = f"encode_{entry}_{tag}"
+            res[key] = compare(key, lambda a: kern(*a), lambda a: plain(*a),
+                               vars_)
+            res[key].update(bound(encode_bytes(inp, entry == "two_half"), 0,
+                                  int32_hz))
+            res[key].update({
+                "reads": len(seqs),
+                "device_ms": device_ms(lambda a: kern(*a), vars_[1:]),
+                "burst_ms": burst_ms(lambda a: kern(*a), vars_[1:])})
+            res[key]["share"] = res[key]["bound_ms"] / res[key]["device_ms"]
+        two = res[f"encode_two_half_{tag}"]
+        two["wrapper_host_us"] = host_us(
+            lambda: enc.encode_two_half_dev(*inp), 200)
+        two["chunk_call_split_us"] = encode_call_split(seqs, quals, dev,
+                                                       ENCODE_CALLS)
+        del vars_, inp
+        torch.cuda.empty_cache()
+    seqs, quals = encode_edge_reads(np.random.default_rng(SEED + 1200))
+    n = len(seqs)
+    spans = [(0, 1), (1, 37), (37, n)]
+    oracle = {"two_half": eg.encode_two_half(seqs, quals),
+              "composite": readscan.encode_composite(seqs, quals)}
+    cases = {}
+    staging = enc.STAGING_BYTES
+    for route, limit in (("pinned", staging), ("pageable", 1024)):
+        enc.STAGING_BYTES = limit
+        try:
+            whole = enc.chunk_inputs(seqs, quals, dev)
+            st = enc.Staged(enc.join(seqs, quals), spans, "cuda")
+            parts = [st.upload(dev, a, b) for a, b in spans]
+        finally:
+            enc.STAGING_BYTES = staging
+        cpu = enc.chunk_inputs(seqs, quals, "cpu")
+        for entry in ("two_half", "composite"):
+            kern = getattr(enc, f"encode_{entry}_dev")
+            want = getattr(enc, f"encode_{entry}_plain")(*cpu)
+            got = [x.cpu() for x in kern(*whole)]
+            cut = [torch.cat(x) for x in zip(*(kern(*p) for p in parts))]
+            want_np = [oracle[entry][0], oracle[entry][1]] + (
+                [oracle[entry][3]] if entry == "two_half" else [])
+            cases[f"{entry}_{route}"] = sum(
+                int((w != x.cpu()).sum()) + int((w.numpy() != o).sum())
+                + int((w != c.cpu()).sum())
+                for w, x, c, o in zip(want, got, cut, want_np))
+    res["encode_edge_cases"] = {"mismatches": sum(cases.values()),
+                                "cases": cases, "reads": n,
+                                "spans": spans}
+    # the refusals: wrong dtypes, offsets without their host copy, a fall,
+    # a size mismatch, soffs and qoffs of other lengths, a strided offsets
+    inp = enc.chunk_inputs(seqs, quals, dev)
+    falls = inp.host_soffs.copy()
+    falls[2] = falls[-1] + 1
+    bad = (inp._replace(seq=inp.seq.view(torch.int8)),
+           inp._replace(soffs=inp.soffs.int()), inp[:4],
+           inp._replace(host_soffs=falls), inp._replace(seq=inp.seq[:-1]),
+           inp._replace(qoffs=inp.qoffs[:-1], host_qoffs=inp.host_qoffs[:-1]),
+           inp._replace(soffs=torch.stack([inp.soffs, inp.soffs], 1)[:, 0]))
+    refused = 0
+    for b in bad:
+        for kern in (enc.encode_two_half_dev, enc.encode_composite_dev):
+            try:
+                kern(*b)
+            except ValueError:
+                refused += 1
+    res["encode_edge_cases"].update({"refused": refused,
+                                     "refusals": 2 * len(bad)})
+    res["encode_edge_cases"]["mismatches"] += 2 * len(bad) - refused
+    return res
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1408,27 +1642,37 @@ def composed_split(codes, lens_d, ep) -> dict:
 
 def scanfastq_split(pipe, inputs, out_dir) -> dict:
     """pipe.run with a timer around each stage (device stages end in a
-    synchronize, so nothing overlaps): seconds by stage. `v1_call` is
-    ReadScanModel.__call__ (upload, the v1 body, download) and contains
-    `qvs_v1`; `other` is the fastq parse, the writers and what is left."""
+    synchronize, so nothing overlaps): seconds by stage. The read encoding
+    in four: `encode_join` (the bytes joined, the offsets), `encode_stage`
+    (into the pinned staging buffer), `encode_upload` (a shard's copy) and
+    `encode_kernel` (both entries); `download` is every device->host copy
+    of the scans (qv2, qsum and qv with the result rows). `v1_edge_scan`
+    is the v1 composite edge scan (the model's `_edge_fn`), `qvs_v1` its
+    host QVs; `other` is the fastq parse, the writers and what is left."""
     import torch
 
     from sicelore_tpu_torch.models import readscan
     from sicelore_tpu_torch.ops import bcsearch
     from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import encode_cuda as enc
     from sicelore_tpu_torch.pipeline import scanfastq as sf
     secs: dict[str, float] = {}
     pl = sf.ScanFastqPipeline
     undo = [
-        timed_fn(secs, eg, "encode_two_half", "encode_two_half"),
-        timed_fn(secs, readscan, "encode_composite", "encode_composite"),
+        timed_fn(secs, enc, "join", "encode_join"),
+        timed_fn(secs, enc.Staged, "__init__", "encode_stage"),
+        timed_fn(secs, enc.Staged, "upload", "encode_upload", sync=True),
+        timed_fn(secs, enc, "encode_two_half_dev", "encode_kernel",
+                 sync=True),
+        timed_fn(secs, enc, "encode_composite_dev", "encode_kernel",
+                 sync=True),
+        timed_fn(secs, readscan, "_to_host_async", "download", sync=True),
         timed_fn(secs, readscan, "build_tiles", "build_tiles"),
         timed_fn(secs, readscan, "tile_feed", "tile_feed", sync=True),
         timed_fn(secs, readscan, "edge_scan2", "edge_scan", sync=True),
         timed_fn(secs, readscan, "tile_scan", "tile_scan", sync=True),
         timed_fn(secs, bcsearch, "bc_sweep", "bc_sweep", sync=True),
-        timed_fn(secs, readscan.ReadScanModel, "__call__", "v1_call",
-                 sync=True),
+        timed_fn(secs, pipe.model, "_edge_fn", "v1_edge_scan", sync=True),
         timed_fn(secs, readscan, "compute_qvs_np", "qvs_v1"),
         timed_fn(secs, eg, "compute_qvs2_np", "qvs_v2"),
         timed_fn(secs, readscan, "finalize_rows_np", "finalize_rows"),
@@ -1447,7 +1691,7 @@ def scanfastq_split(pipe, inputs, out_dir) -> dict:
             u()
     secs["total"] = time.perf_counter() - t
     secs["other"] = secs["total"] - sum(
-        v for k, v in secs.items() if k not in ("total", "qvs_v1"))
+        v for k, v in secs.items() if k != "total")
     return {"stats": stats.to_json(),
             "seconds": {k: round(v, 3) for k, v in secs.items()}}
 
@@ -1724,20 +1968,25 @@ def chain_truth(aligned_bam, tagged_bam, genes):
 
 
 def path_counters():
-    """{name: function} of every launch counter: the seven kernel wrappers,
+    """{name: function} of every launch counter: the nine kernel wrappers,
     the composed edge body, the plain bodies (keys starting "plain_"), and
     myers_global_pairwise, the torch body the pairwise kernel's plain
     version calls once a pattern length."""
     from sicelore_tpu_torch.ops import bcsearch, editdist, poa_cuda
     from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import encode_cuda as enc
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
-    return {"edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
+    return {"encode_two_half": enc.encode_two_half_dev,
+            "encode_composite": enc.encode_composite_dev,
+            "edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
             "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan,
             "win1": editdist.myers_win1, "bandalign": poa_cuda.band_align,
             "pairwise": editdist.myers_global_group,
             "edge_composed": eg.edge_scan2_composed,
             "myers_global_pairwise": editdist.myers_global_pairwise,
+            "plain_encode_two_half": enc.encode_two_half_plain,
+            "plain_encode_composite": enc.encode_composite_plain,
             "plain_edgescan": eg.edge_scan2_plain,
             "plain_bcsweep": bcsearch.bc_sweep_plain,
             "plain_tilefeed": ts.tile_feed_plain,
@@ -2179,6 +2428,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     from sicelore_tpu_torch.models import readscan
     from sicelore_tpu_torch.ops import _build, bcsearch, editdist
     from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import encode_cuda as enc
     from sicelore_tpu_torch.ops import poa_cuda, scan
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
@@ -2205,8 +2455,8 @@ def _run(pool, wl, cells, work, dev) -> int:
                               text=True, timeout=60).stdout.strip(
                               ).splitlines()[-1] if nvcc else None
     _build.build_all()
-    for stem in ("edgescan", "bcsweep", "tilefeed", "tilescan", "bandalign",
-                 "win1", "pairwise"):
+    for stem in ("encode", "edgescan", "bcsweep", "tilefeed", "tilescan",
+                 "bandalign", "win1", "pairwise"):
         _build.load(stem)
     emit({"phase": "env", "nvidia_smi": smi, "max_sm_mhz": sm_hz / 1e6,
           "sms": sms,
@@ -2240,6 +2490,11 @@ def _run(pool, wl, cells, work, dev) -> int:
     lens5_d = torch.from_numpy(lens5).to(dev)
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
+    # the read encoding on both chunks (the main path's chunks) and its
+    # edge set, first: its rows feed every scan below on the main path
+    results = encode_phase(dev, {"3p": (chunk.seqs, chunk.quals),
+                                 "5p": (chunk5.seqs, chunk5.quals)},
+                           int32_hz)
 
     def mutate_reads(ct, ld):
         """One substituted base per read, inside the read (fresh content)."""
@@ -2257,7 +2512,6 @@ def _run(pool, wl, cells, work, dev) -> int:
         return ct
 
     ep = eg.edge_params(cfg)
-    results = {}
     for key, c0, ld, pe in (("edgescan", codes, lens_d, ep),
                             ("edgescan_5p", codes5, lens5_d, ep5)):
         # the bound from the chunk as it is (each variant differs from it
@@ -2709,8 +2963,10 @@ def _run(pool, wl, cells, work, dev) -> int:
         return 0        # a kernel's author iterating: no path, no ok line
 
     # ---- the main path: scanfastq on cuda ----
-    counters = (edge_scan2, bcsearch.bc_sweep, ts.tile_feed, ts.tile_scan,
+    counters = (enc.encode_two_half_dev, enc.encode_composite_dev,
+                edge_scan2, bcsearch.bc_sweep, ts.tile_feed, ts.tile_scan,
                 editdist.myers_win1, eg.edge_scan2_composed,
+                enc.encode_two_half_plain, enc.encode_composite_plain,
                 eg.edge_scan2_plain, bcsearch.bc_sweep_plain,
                 ts.tile_feed_plain, ts.tile_scan_plain,
                 editdist.myers_win1_plain)
@@ -2721,14 +2977,18 @@ def _run(pool, wl, cells, work, dev) -> int:
         edge_scan2.launches_5p = 0
 
     def read_counts():
-        return ({"edgescan": edge_scan2.launches,
+        return ({"encode_two_half": enc.encode_two_half_dev.launches,
+                 "encode_composite": enc.encode_composite_dev.launches,
+                 "edgescan": edge_scan2.launches,
                  "edgescan_5p": edge_scan2.launches_5p,
                  "bcsweep": bcsearch.bc_sweep.launches,
                  "tilefeed": ts.tile_feed.launches,
                  "tilescan": ts.tile_scan.launches,
                  "win1": editdist.myers_win1.launches,
                  "edge_composed": eg.edge_scan2_composed.launches},
-                {"edgescan": eg.edge_scan2_plain.launches,
+                {"encode_two_half": enc.encode_two_half_plain.launches,
+                 "encode_composite": enc.encode_composite_plain.launches,
+                 "edgescan": eg.edge_scan2_plain.launches,
                  "bcsweep": bcsearch.bc_sweep_plain.launches,
                  "tilefeed": ts.tile_feed_plain.launches,
                  "tilescan": ts.tile_scan_plain.launches,
@@ -2743,14 +3003,15 @@ def _run(pool, wl, cells, work, dev) -> int:
     torch.cuda.synchronize()
     run_s = time.time() - t_run
     launches, plain = read_counts()
+    launches3 = dict(launches)
     total = N_FILES * READS_PER_FILE
     emit({"phase": "pipeline", "reads": stats.total_reads,
           "used_list": len(pipe.used_strs), "run_s": round(run_s, 3),
           "reads_per_s": round(total / run_s, 1), "stats": stats.to_json(),
           "launches": launches, "plain_launches": plain,
           **fused_split(launches), "s": round(time.time() - t0, 2)})
-    if (min(launches[k] for k in ("edgescan", "bcsweep", "tilefeed",
-                                  "tilescan")) < 1
+    if (min(launches[k] for k in ("encode_two_half", "edgescan", "bcsweep",
+                                  "tilefeed", "tilescan")) < 1
             or launches["win1"] or launches["edge_composed"]
             or launches["edgescan_5p"] or any(plain.values())):
         raise SystemExit(f"main path launches {launches}, plain {plain}")
@@ -2794,8 +3055,8 @@ def _run(pool, wl, cells, work, dev) -> int:
           "stats": stats5.to_json(), "launches": launches5,
           "plain_launches": plain5, **fused_split(launches5),
           "s": round(time.time() - t0, 2)})
-    if (min(launches5[k] for k in ("edgescan", "bcsweep", "tilefeed",
-                                   "tilescan")) < 1
+    if (min(launches5[k] for k in ("encode_two_half", "edgescan",
+                                   "bcsweep", "tilefeed", "tilescan")) < 1
             or launches5["win1"] or launches5["edge_composed"]
             or launches5["edgescan_5p"] != launches5["edgescan"]
             or any(plain5.values())):
@@ -2853,7 +3114,8 @@ def _run(pool, wl, cells, work, dev) -> int:
           "launches": launches_c, "plain_launches": plain_c,
           "parity_reads": N_PARITY, "parity_files_identical": n_files,
           "s": round(time.time() - t0, 2)})
-    if (min(launches_c[k] for k in ("win1", "edgescan", "bcsweep",
+    if (min(launches_c[k] for k in ("encode_two_half", "encode_composite",
+                                    "win1", "edgescan", "bcsweep",
                                     "tilescan")) < 1
             or launches_c["edge_composed"] or any(plain_c.values())):
         raise SystemExit(f"control launches {launches_c}, plain {plain_c}")
@@ -3043,7 +3305,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     cons_same = all((work / f"cons_mesh{x}").read_bytes()
                     == (work / f"cons_cuda{x}").read_bytes()
                     for x in (".fastq", ".fastq.log"))
-    mesh_kernels = ("edgescan", "bcsweep", "tilescan")
+    mesh_kernels = ("encode_two_half", "edgescan", "bcsweep", "tilescan")
     mesh_ph = {
         "phase": "mesh", "mesh": mesh, "shards": len(mesh),
         "cards": n_cards, "reads": stats_m.total_reads,
@@ -3323,14 +3585,23 @@ def _run(pool, wl, cells, work, dev) -> int:
           "log": pre.stderr.splitlines()[-30:],
           "s": round(time.time() - t0, 2)})
     if pre.returncode or sorted(pre_ms) != sorted(
-            ("edgescan", "bcsweep", "tilefeed", "tilescan", "win1",
-             "bandalign", "pairwise")) or \
+            ("encode_two_half", "encode_composite", "edgescan", "bcsweep",
+             "tilefeed", "tilescan", "win1", "bandalign", "pairwise")) or \
             min(pre_ms.values()) <= 0:
         raise SystemExit(f"precompile: rc {pre.returncode}, {pre_ms}")
 
     # one entry a kernel source; the edge kernel's 5p chunk and launches
     # stand in its entry under *_5p keys
-    src = {"edgescan": ("sicelore_tpu_torch/csrc/edgescan.cu",
+    src = {# not Pallas kernels: the host encoders and the device decodes
+           # of the JAX route (encode_composite_tm + unpack_tm; v1:
+           # encode_composite_2bit + unpack_2bit)
+           "encode_two_half": ("sicelore_tpu_torch/csrc/encode.cu",
+                               "sicelore_tpu/ops/edgescan.py:147",
+                               "encode_two_half_3p"),
+           "encode_composite": ("sicelore_tpu_torch/csrc/encode.cu",
+                                "sicelore_tpu/models/readscan.py:734",
+                                "encode_composite_3p"),
+           "edgescan": ("sicelore_tpu_torch/csrc/edgescan.cu",
                         "sicelore_tpu/ops/edgescan_tpu.py:87", "edgescan"),
            "bcsweep": ("sicelore_tpu_torch/csrc/bcsweep.cu",
                        "sicelore_tpu/ops/bcsearch.py:34",
@@ -3351,6 +3622,8 @@ def _run(pool, wl, cells, work, dev) -> int:
     # the window search runs on the control path (the 3p and 5p runs take
     # the fused edge kernel): the control run's count
     launches["win1"] = launches_c["win1"]
+    # the v1 composite encode runs on the control path too
+    launches["encode_composite"] = launches_c["encode_composite"]
     kernels = []
     for name, (source, replaces, key) in src.items():
         r = results[key]
@@ -3402,6 +3675,29 @@ def _run(pool, wl, cells, work, dev) -> int:
                               rk["launches"]["edgescan_5p"] for rk in ranks]})
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        o["max_abs_err"])
+        if name.startswith("encode_"):
+            o = results[f"{name}_5p"]
+            ec = results["encode_edge_cases"]
+            entry.update({"reads": r["reads"], "device_ms": r["device_ms"],
+                          "burst_ms": r["burst_ms"], "share": r["share"],
+                          "ms_5p": o["ms"], "device_ms_5p": o["device_ms"],
+                          "burst_ms_5p": o["burst_ms"],
+                          "plain_ms_5p": o["plain_ms"],
+                          "bound_ms_5p": o["bound_ms"],
+                          "edge_case_mismatches": sum(
+                              v for k, v in ec["cases"].items()
+                              if k.startswith(name[7:])),
+                          "refused": ec["refused"],
+                          "launches_3p": launches3[name],
+                          "launches_5p": launches5[name],
+                          "launches_control": launches_c[name]})
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       o["max_abs_err"])
+            if name == "encode_two_half":
+                entry.update({
+                    "wrapper_host_us": r["wrapper_host_us"],
+                    "chunk_call_split_us": r["chunk_call_split_us"],
+                    "chunk_call_split_us_5p": o["chunk_call_split_us"]})
         if name == "tilescan":
             o = results["tilescan_fed"]
             entry.update({"device_ms": r["device_ms"],
@@ -3535,6 +3831,10 @@ def _run(pool, wl, cells, work, dev) -> int:
                       "control_reads_per_s":
                           round(stats_c.total_reads / ctl_s, 1),
                       "control_falsely_assigned_share": false_share,
+                      "encode_3p_device_ms":
+                          results["encode_two_half_3p"]["device_ms"],
+                      "encode_3p_chunk_call_us": results[
+                          "encode_two_half_3p"]["chunk_call_split_us"],
                       "edge_3p_device_ms": results["edgescan"]["device_ms"],
                       "edge_5p_device_ms":
                           results["edgescan_5p"]["device_ms"],

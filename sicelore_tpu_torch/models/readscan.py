@@ -2,7 +2,7 @@
 
 Port of `sicelore_tpu/models/readscan.py::ReadScanModel`: the v2 two-half
 passes that `ScanFastqPipeline.run` drives, and the v1 composite edge scan
-(`__call__`, `scan_reads`) and bucketed chimera scan (`scan_internal`) behind
+(`scan_reads`) and bucketed chimera scan (`scan_internal`) behind
 the synchronous pass 2. Every read ships as N-safe int8 codes, so the device
 result is final for every read: no read or tile re-runs on a second, exact
 path. v2 device outputs are int32 rows named by the `*_ROW_NAMES` tuples and
@@ -10,6 +10,9 @@ finalized on the host (`finalize_rows_np`) into the same dicts the JAX model
 returns.
 
 Kernels (CUDA for CUDA tensors, plain torch for CPU tensors):
+  * read encoding   ops.encode_cuda.encode_two_half_dev (every v2 pass: a
+                    chunk's raw bytes to the [B, 2E] rows the scans read,
+                    qv2 and qsum), encode_composite_dev (scan_reads)
   * edge scan       ops.edgescan_cuda.edge_scan2   (pass 1, split rescans,
                                                     streaming pass 2; 3p)
   * window search   ops.editdist.myers_win1        (the composed edge scan of
@@ -50,6 +53,7 @@ from sicelore_tpu_torch.utils.config import PipelineConfig
 from sicelore_tpu_torch.device import resolve
 from sicelore_tpu_torch.ops import bcsearch, editdist, scan
 from sicelore_tpu_torch.ops import edgescan as eg2
+from sicelore_tpu_torch.ops import encode_cuda as enc
 from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
 from sicelore_tpu_torch.ops.tilescan_cuda import (ROW_BYTES, TILE,
                                                   feed_covered, tile_feed,
@@ -594,17 +598,20 @@ def _host(h) -> np.ndarray:
     return t.numpy()
 
 
-def _host_rows(handles, i: int = 0) -> np.ndarray:
+def _host_rows(handles, i: int = 0, axis: int = -1) -> np.ndarray:
     """Output i of each shard (`ReadScanModel._sharded`) on the host, the
-    shards' columns joined in read order."""
+    shards' parts joined in read order along `axis` (the columns of the
+    [rows, B] outputs; axis 0 for qv2, [B, 2E])."""
     parts = [_host(h[i]) for h in handles]
-    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=-1)
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=axis)
 
 
-def _upload(dev, codes: np.ndarray, lens: np.ndarray, a: int, b: int):
-    """Rows [a, b) of encode_two_half's codes and lengths on `dev`."""
-    return (torch.from_numpy(codes[a:b]).to(dev),
-            torch.from_numpy(lens[a:b]).to(dev))
+def _encode(staged: enc.Staged, dev, a: int, b: int):
+    """Rows [a, b) of a staged chunk on `dev`, encoded there (one upload,
+    one encode launch): (codes [n, 2E] int8, lens [n] int32, qv2, qsum)."""
+    inp = staged.upload(dev, a, b)
+    codes, qv2, qsum = enc.encode_two_half_dev(*inp)
+    return codes, inp.lens(), qv2, qsum
 
 
 def fused_tiles_route(device: torch.device, mesh) -> bool:
@@ -687,6 +694,14 @@ class ReadScanModel:
 
     # -- shards ----------------------------------------------------------
 
+    def _staged(self, seqs, quals) -> enc.Staged:
+        """A chunk's bytes joined and staged for the spans `_sharded` cuts
+        (each shard uploads its own span)."""
+        devices = self.mesh or [self.device]
+        return enc.Staged(enc.join(seqs, quals),
+                         shard.cuts(len(seqs), len(devices)),
+                         devices[0].type)
+
     def _sharded(self, n: int, body):
         """body(device, a, b) -> a device tensor, or a tuple of them, for
         rows [a, b) of n, on each shard that has rows (n == 0: once, on the
@@ -705,16 +720,21 @@ class ReadScanModel:
     # -- pass 1 (streaming) ----------------------------------------------
 
     def scan_pass1_async(self, seqs: list[bytes], quals: list[bytes]):
-        """Launch the pass-1 scan; force with finish_pass1."""
-        codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
-        hs = self._sharded(len(true_lens), lambda dev, a, b: self._pass1_fn(
-            *_upload(dev, codes, true_lens, a, b)))
-        return hs, qv2, true_lens, qsum
+        """Launch the pass-1 scan; force with finish_pass1. Every shard's
+        outputs start with its qv2 and qsum (`_encode`)."""
+        st = self._staged(seqs, quals)
+
+        def run(dev, a, b):
+            codes, lens, qv2, qsum = _encode(st, dev, a, b)
+            return qv2, qsum, self._pass1_fn(codes, lens)
+
+        return self._sharded(len(seqs), run), st.chunk.lens
 
     def finish_pass1(self, handle):
-        hs, qv2, true_lens, qsum = handle
-        out = finalize_rows_np(_host_rows(hs), P1_ROW_NAMES, true_lens,
+        hs, true_lens = handle
+        out = finalize_rows_np(_host_rows(hs, 2), P1_ROW_NAMES, true_lens,
                                self.cfg)
+        qv2, qsum = _host_rows(hs, 0, axis=0), _host_rows(hs, 1)
         eg2.compute_qvs2_np(qv2, true_lens, out,
                             self.cfg.barcodes.cell_bc_length, self.is5p,
                             qsum, need_x=False)
@@ -730,22 +750,25 @@ class ReadScanModel:
         """Launch the pass-1 FULL scan (edge rows + BC windows, and on the
         fused route the covered reads' chimera scan, see
         make_pass1_full_body); force with finish_pass1_full."""
-        codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
+        st = self._staged(seqs, quals)
+        true_lens = st.chunk.lens
         body = self._pass1_full_tiles_fn if self._p1f_tiles \
             else self._pass1_full_fn
         # the fused route (one device, no mesh: one shard, a = 0): the
-        # covered reads' index goes up with the codes
+        # covered reads' index, from the host's lengths, goes up beside the
+        # chunk's bytes
         cov_idx = np.nonzero(feed_covered(true_lens, self._tile_params))[0] \
             if self._p1f_tiles else None
 
         def run(dev, a, b):
-            args = _upload(dev, codes, true_lens, a, b)
+            codes, lens, qv2, qsum = _encode(st, dev, a, b)
+            args = (codes, lens)
             if cov_idx is not None:
                 args += (torch.from_numpy(cov_idx.astype(np.int32)).to(dev),)
-            return body(*args)
+            return qv2, qsum, *body(*args)
 
         hs = self._sharded(len(true_lens), run)
-        return hs, qv2, true_lens, qsum, cov_idx
+        return hs, true_lens, cov_idx
 
     def finish_pass1_full(self, handle):
         """-> (out dict with finalized ps/pe/ae/tso/x windows and all three
@@ -753,18 +776,18 @@ class ReadScanModel:
         sweep, the fused route's chimera scan [3, B] int32 or None: the
         covered reads' rows scattered back to their reads, every other read
         n = 0, no split)."""
-        hs, qv2, true_lens, qsum, cov_idx = handle
-        out = finalize_rows_np(_host_rows(hs, 0), P1F_ROW_NAMES, true_lens,
+        hs, true_lens, cov_idx = handle
+        out = finalize_rows_np(_host_rows(hs, 2), P1F_ROW_NAMES, true_lens,
                                self.cfg)
-        eg2.compute_qvs2_np(qv2, true_lens, out,
+        eg2.compute_qvs2_np(_host_rows(hs, 0, axis=0), true_lens, out,
                             self.cfg.barcodes.cell_bc_length, self.is5p,
-                            qsum)
+                            _host_rows(hs, 1))
         tiles3 = None
         if cov_idx is not None:
             tiles3 = np.zeros((3, len(true_lens)), np.int32)
             tiles3[1:] = -1
-            tiles3[:, cov_idx] = _host_rows(hs, 2)
-        return out, _host_rows(hs, 1), tiles3
+            tiles3[:, cov_idx] = _host_rows(hs, 4)
+        return out, _host_rows(hs, 3), tiles3
 
     def tiles_fused_mask(self, true_lens, dirty):
         """(covered, need): the reads whose chimera scan the fused pass 1
@@ -847,54 +870,55 @@ class ReadScanModel:
     def scan_search_async(self, seqs: list[bytes], quals: list[bytes]):
         """Launch the fused edge scan + whitelist sweep; force with
         finish_search. Requires prepare_search."""
-        codes, qv2, true_lens, qsum = eg2.encode_two_half(seqs, quals)
-        hs = self._sharded(len(true_lens), lambda dev, a, b: self._search_fn(
-            *_upload(dev, codes, true_lens, a, b), *self._used_list(dev)))
-        return hs, qv2, true_lens, qsum, seqs, quals
+        st = self._staged(seqs, quals)
+
+        def run(dev, a, b):
+            codes, lens, qv2, qsum = _encode(st, dev, a, b)
+            return qv2, qsum, self._search_fn(codes, lens,
+                                              *self._used_list(dev))
+
+        hs = self._sharded(len(seqs), run)
+        return hs, st.chunk.lens, seqs, quals
 
     def finish_search(self, handle):
         """Force a scan_search_async result -> (edge dict, best dict)."""
-        hs, qv2, true_lens, qsum, seqs, quals = handle
-        out = finalize_rows_np(_host_rows(hs), P2_ROW_NAMES, true_lens,
+        hs, true_lens, seqs, quals = handle
+        out = finalize_rows_np(_host_rows(hs, 2), P2_ROW_NAMES, true_lens,
                                self.cfg)
         # pass-2 emit consumes only x_qv (bc/read QV are pass-1 criteria)
-        eg2.compute_qvs2_np(qv2, true_lens, out,
+        eg2.compute_qvs2_np(_host_rows(hs, 0, axis=0), true_lens, out,
                             self.cfg.barcodes.cell_bc_length, self.is5p,
-                            qsum, need_bc=False, need_read=False)
+                            _host_rows(hs, 1), need_bc=False,
+                            need_read=False)
         bc = self._bc_dict(out)
         idxs = np.nonzero(out["overflow"])[0]
         if len(idxs):
             # the fused rows carry no BC windows: scan those reads again
-            codes, _, lens, _ = eg2.encode_two_half(
-                [seqs[i] for i in idxs], [quals[i] for i in idxs])
-            _, wins = self._pass1_full_fn(
-                *_upload(self.device, codes, lens, 0, len(lens)))
+            inp = enc.chunk_inputs([seqs[i] for i in idxs],
+                                   [quals[i] for i in idxs], self.device)
+            _, wins = self._pass1_full_fn(enc.encode_two_half_dev(*inp)[0],
+                                          inp.lens())
             self._redo_exact(bc, idxs, wins.t().cpu().numpy())
         return out, bc
 
     # -- v1: composite edge scan + bucketed chimera scan (synchronous) ---
 
-    def __call__(self, seqs, quals, lens):
-        """v1 edge scan of [B, L] int8 code batches -> dict of numpy arrays
-        in composite coordinates (QVs are computed host-side from `quals`;
-        only the codes ship to the device)."""
-        out_d = self._edge_fn(
-            torch.from_numpy(np.ascontiguousarray(seqs, dtype=np.int8)).to(
-                self.device),
-            torch.from_numpy(np.asarray(lens, dtype=np.int32)).to(
-                self.device))
+    def scan_reads(self, seqs: list[bytes], quals: list[bytes]):
+        """Composite edge scan of raw reads; coords remapped to true reads.
+        The composite rows are encoded on the device from the reads' bytes
+        (`encode_composite_dev`); the qualities come down for the QVs,
+        which are computed on the host."""
+        inp = enc.chunk_inputs(seqs, quals, self.device)
+        codes, qv = enc.encode_composite_dev(*inp)
+        qv_h = _to_host_async(qv)
+        true_lens = np.diff(inp.host_soffs).astype(np.int32)
+        out_d = self._edge_fn(codes, inp.lens().clamp(max=2 * EDGE))
         meta = torch.stack([out_d[k].to(torch.int32)
                             for k in EDGE_META_KEYS])
         out = unpack_edge_meta(meta.cpu().numpy())
         out["bc_windows"] = out_d["bc_windows"].cpu().numpy()
-        compute_qvs_np(np.asarray(quals, dtype=np.int8), lens, out,
+        compute_qvs_np(_host(qv_h), np.minimum(true_lens, 2 * EDGE), out,
                        self.cfg.barcodes.cell_bc_length, self.is5p)
-        return out
-
-    def scan_reads(self, seqs: list[bytes], quals: list[bytes]):
-        """Composite edge scan of raw reads; coords remapped to true reads."""
-        codes, qv, comp_lens, true_lens = encode_composite(seqs, quals)
-        out = self(codes, qv, comp_lens)
         for key in ("ps", "pe", "ae", "x_start", "x_end"):
             out[key] = remap_composite(out[key], true_lens)
         out["true_lens"] = true_lens

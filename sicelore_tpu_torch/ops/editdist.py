@@ -431,11 +431,6 @@ def myers_global_group(raw: torch.Tensor, offs: torch.Tensor,
                   offs.data_ptr(), out.data_ptr(), K, S)
     myers_global_group.launches += 1
     return out
-    fn = _build.bind("pairwise", "pairwise_launch", 3, 2)
-    _build.launch(fn, "pairwise", raw.device, raw.data_ptr(),
-                  offs.data_ptr(), out.data_ptr(), K, S)
-    myers_global_group.launches += 1
-    return out
 
 
 myers_global_group.launches = 0

@@ -9,9 +9,10 @@ and the first launch of each kernel on the card. `warm` pays them up front:
 
   - builds every `csrc/*.cu` (`_build.build_all`, one nvcc a source, all in
     parallel);
-  - launches the edge scan, the whitelist sweep (at `n_bc` barcodes), the
-    tile feed, the tile scan and the window search once each at a
-    scanfastq chunk's shapes
+  - launches the read encoding (both entries), the edge scan, the
+    whitelist sweep (at `n_bc` barcodes), the tile feed (on the encoding's
+    rows), the tile scan and the window search once each at a scanfastq
+    chunk's shapes
     (CHUNK reads; with `full`, also the smaller tail chunks), the band
     aligner at the consensus buckets (Lc 256 and 512; with `full`, 1,024
     and 2,048) and at the aligner's gap buckets (Lc 64; with `full`, 128
@@ -32,16 +33,19 @@ from __future__ import annotations
 import sys
 import time
 
-KERNELS = ("edgescan", "bcsweep", "tilefeed", "tilescan", "win1",
-           "bandalign", "pairwise")
+KERNELS = ("encode_two_half", "encode_composite", "edgescan", "bcsweep",
+           "tilefeed", "tilescan", "win1", "bandalign", "pairwise")
 CHUNK = 50_000    # reads a scanfastq chunk (ScanFastqPipeline's chunk_size)
 
 
 def _counters():
     from sicelore_tpu_torch.ops import bcsearch, editdist, poa_cuda
+    from sicelore_tpu_torch.ops import encode_cuda as enc
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
-    return {"edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
+    return {"encode_two_half": enc.encode_two_half_dev,
+            "encode_composite": enc.encode_composite_dev,
+            "edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
             "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan,
             "win1": editdist.myers_win1, "bandalign": poa_cuda.band_align,
             "pairwise": editdist.myers_global_group}
@@ -63,7 +67,7 @@ def jobs(dev, n_bc: int, full: bool, chunk: int) -> list:
     from sicelore_tpu_torch.align.extend import GapBatcher
     from sicelore_tpu_torch.core import umicluster
     from sicelore_tpu_torch.models import readscan
-    from sicelore_tpu_torch.ops import edgescan as eg
+    from sicelore_tpu_torch.ops import encode_cuda as enc
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.poa_cuda import BatchedConsensusEngine
     from sicelore_tpu_torch.utils import dna, synth
@@ -85,10 +89,11 @@ def jobs(dev, n_bc: int, full: bool, chunk: int) -> list:
             model.scan_pass1_full_async(seqs, quals))[1]
 
     def feed(seqs, quals):
-        codes, _, lens, _ = eg.encode_two_half(seqs, quals)
-        idx = np.nonzero(ts.feed_covered(lens, model._tile_params))[0]
-        ts.tile_feed(torch.from_numpy(codes).to(dev),
-                     torch.from_numpy(lens).to(dev),
+        inp = enc.chunk_inputs(seqs, quals, dev)
+        codes = enc.encode_two_half_dev(*inp)[0]
+        idx = np.nonzero(ts.feed_covered(np.diff(inp.host_soffs),
+                                         model._tile_params))[0]
+        ts.tile_feed(codes, inp.lens(),
                      torch.from_numpy(idx.astype(np.int32)).to(dev),
                      model._tile_params)
 
@@ -96,6 +101,10 @@ def jobs(dev, n_bc: int, full: bool, chunk: int) -> list:
     for B in [chunk] + ([4_096, 256] if full else []):
         seqs = _reads(rng, B, 600)
         quals = [b"I" * 600] * B
+        for entry in ("encode_two_half", "encode_composite"):
+            out.append((f"{entry}_B{B}", entry,
+                        lambda s=seqs, q=quals, e=entry: getattr(
+                            enc, f"{e}_dev")(*enc.chunk_inputs(s, q, dev))))
         out.append((f"edgescan_B{B}", "edgescan",
                     lambda s=seqs, q=quals: pass1(s, q)))
         out.append((f"tilefeed_B{B}", "tilefeed",

@@ -91,3 +91,24 @@ def test_cuda_request_without_gpu_raises():
         resolve("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         ReadScanModel(device="cuda")
+
+
+def test_port_has_no_statement_after_a_return():
+    """No block of the port's Python (or of chip_smoke.py) goes on after a
+    return, raise, break or continue: such lines never run (a wrapper once
+    carried a second, unreachable launch after its return)."""
+    import ast
+    ends = (ast.Return, ast.Raise, ast.Break, ast.Continue)
+    bad = []
+    files = sorted((REPO / "sicelore_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            for field in ("body", "orelse", "finalbody"):
+                block = getattr(node, field, None)
+                if not isinstance(block, list):
+                    continue
+                for a, b in zip(block, block[1:]):
+                    if isinstance(a, ends):
+                        bad.append(f"{f.relative_to(REPO)}:{b.lineno}")
+    assert len(files) > 50 and not bad, bad

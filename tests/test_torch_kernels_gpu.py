@@ -736,3 +736,78 @@ def test_pairwise_download_above_pinned_bytes(dev, monkeypatch, K):
         np.testing.assert_array_equal(
             umicluster._pairwise_ed_device(umis, dev),
             umicluster._pairwise_ed_device(umis, "cpu"))
+
+
+def _encode_sets(reads):
+    """The encode kernel's read sets: chip_smoke's edge set and the
+    module's reads (qualities of their own length, and cut or grown)."""
+    rng = np.random.default_rng(12)
+    _, seqs = reads
+    quals = [rng.integers(0, 256, max(len(s) + int(d), 0)).astype(
+        np.uint8).tobytes() for s, d in zip(seqs, rng.integers(-9, 9,
+                                                               len(seqs)))]
+    return {"edge": chip_smoke.encode_edge_reads(rng),
+            "reads": (seqs, quals)}
+
+
+@pytest.mark.parametrize("entry", ["two_half", "composite"])
+@pytest.mark.parametrize("spans", [None, [(0, 1), (1, 37), (37, 60)]])
+@pytest.mark.parametrize("name", ["edge", "reads"])
+def test_encode_kernel_matches_plain(dev, reads, name, spans, entry):
+    """csrc/encode.cu against its plain version on the same bytes, in one
+    launch or in spans of rebased offsets (the first 60 reads): every row,
+    exact; the wrapper counts its launches, the plain version does not
+    run on the card."""
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    seqs, quals = _encode_sets(reads)[name]
+    kern = getattr(enc, f"encode_{entry}_dev")
+    plain = getattr(enc, f"encode_{entry}_plain")
+    if spans is not None:
+        seqs, quals = seqs[:60], quals[:60]
+    want = plain(*enc.chunk_inputs(seqs, quals, "cpu"))
+    st = enc.Staged(enc.join(seqs, quals), spans or [(0, len(seqs))], "cuda")
+    n, p = kern.launches, plain.launches
+    parts = [kern(*st.upload(dev, a, b)) for a, b in
+             (spans or [(0, len(seqs))])]
+    torch.cuda.synchronize()
+    assert kern.launches == n + len(parts) and plain.launches == p
+    for w, got in zip(want, zip(*parts)):
+        got = torch.cat(got).cpu()
+        assert got.dtype == w.dtype and torch.equal(got, w)
+
+
+def test_encode_kernel_pageable_route_and_refusals(dev, reads):
+    """A chunk over STAGING_BYTES goes up from pageable memory, to the same
+    rows; the wrappers refuse what the kernel does not take; an empty chunk
+    launches nothing."""
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    seqs, quals = _encode_sets(reads)["edge"]
+    want = enc.encode_two_half_plain(*enc.chunk_inputs(seqs, quals, "cpu"))
+    limit = enc.STAGING_BYTES
+    enc.STAGING_BYTES = 1024
+    try:
+        st = enc.Staged(enc.join(seqs, quals), [(0, len(seqs))], "cuda")
+    finally:
+        enc.STAGING_BYTES = limit
+    assert st.ring_index is None
+    got = enc.encode_two_half_dev(*st.upload(dev, 0, len(seqs)))
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+    inp = enc.chunk_inputs(seqs, quals, dev)
+    falls = inp.host_soffs.copy()
+    falls[2] = falls[-1] + 1
+    for bad, what in ((inp._replace(seq=inp.seq.view(torch.int8)), "uint8"),
+                      (inp._replace(soffs=inp.soffs.int()), "int64"),
+                      (inp[:4], "host"),
+                      (inp._replace(host_soffs=falls), "fall"),
+                      (inp._replace(seq=inp.seq[:-1]), "fall"),
+                      (inp._replace(soffs=inp.soffs.cpu()), "one device"),
+                      (inp._replace(soffs=torch.stack(
+                          (inp.soffs, inp.soffs), 1)[:, 0]), "contiguous")):
+        for fn in (enc.encode_two_half_dev, enc.encode_composite_dev):
+            with pytest.raises(ValueError, match=what):
+                fn(*bad)
+    before = enc.encode_two_half_dev.launches
+    codes, _, qsum = enc.encode_two_half_dev(*enc.chunk_inputs([], [], dev))
+    assert codes.shape == (0, 2 * eg.E) and qsum.shape == (0,)
+    assert enc.encode_two_half_dev.launches == before
