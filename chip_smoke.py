@@ -18,7 +18,14 @@ Phases (one JSON line each, with its seconds):
             qualities, qualities shorter and longer than their read) in one
             launch and in spans of 1, 36 and the rest (rebased offsets),
             through the pinned and the pageable staging, each also against
-            the numpy oracles, and the wrappers' refusals; the edge scan over a 32,768-read 3p
+            the numpy oracles, and the wrappers' refusals; over
+            encode_shape_reads (lengths around 0, E, 2E and 3E in a row, L
+            = 0 beside Lq = 0, L > 2E with Lq <= 2E and the reverse) with
+            seq and qual starting 0-15 bytes past a 16-byte boundary, and
+            over the chunk's first B reads for B of 1, 2 and around the
+            grid's warps (encode_layout_cases); its kernels' registers,
+            spills and shared memory and the SASS of their read loop
+            (encode_kernel_usage); the edge scan over a 32,768-read 3p
             chunk and a 32,768-read 5p chunk (encode_two_half's rows [B, 2E]
             as they are), and over the edge set (edge_set_reads: lengths 0,
             under k, E, 2E and over 2E, all-N reads, runs at win_p and at
@@ -278,8 +285,10 @@ Operation counts, from the kernels' own arithmetic:
     (two columns each) of the union of the columns those windows read and
     the confirm windows' columns inside [0, tlen) (the rest is PAD, known
     from tlen), and the [3, T] int32 output.
-  encode (both entries): no operations worth a bound (it moves bytes,
-    about ten integer operations a column): bytes only, the bytes of each
+  encode (both entries): no operations worth a bound (it moves bytes;
+    its read loop issues about 17 instructions a lane a column of both
+    streams, 3.4e8 for a 32,768-read chunk, under half the byte time):
+    bytes only, the bytes of each
     read and of its quality string that a row takes (min(L, 2E) and
     min(Lq, 2E): a two-half row's head and tail overlap below 2E), the
     two int64 offset arrays, and the [B, 2E] codes and qv rows written
@@ -314,6 +323,7 @@ import functools
 import json
 import multiprocessing as mp
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1002,6 +1012,54 @@ def encode_edge_reads(rng):
     return seqs, quals
 
 
+def encode_shape_reads(rng):
+    """Reads the kernel's widened spans and its stage could get wrong:
+    lengths 0-17, E - 9 .. E + 9, 2E - 9 .. 2E + 9 and 3E - 9 .. 3E + 9 in
+    a row (every span start and end at every offset in a 16-byte word);
+    L = 0 beside Lq = 0 and beside a full quality string, and the reverse;
+    L > 2E with Lq <= 2E and the reverse; qualities over every byte value.
+    Returns (seqs, quals)."""
+    import numpy as np
+
+    from sicelore_tpu_torch.ops.edgescan import E
+    pool = np.frombuffer(b"ACGTacgtN\x00", np.uint8)
+    lens = [*range(18)]
+    for m in (E, 2 * E, 3 * E):
+        lens += range(m - 9, m + 10)
+    pairs = [(L, L) for L in lens] + [
+        (0, 0), (0, 2 * E + 5), (0, 40), (2 * E + 5, 0), (40, 0),
+        (2 * E + 40, 2 * E), (2 * E + 1, E - 3), (3 * E, 17),
+        (2 * E, 2 * E + 40), (E - 3, 2 * E + 1), (17, 3 * E)]
+    seqs, quals = [], []
+    for i, (L, Lq) in enumerate(pairs):
+        s = rng.integers(0, 256, L) if i % 3 == 0 else rng.choice(pool, L)
+        seqs.append(s.astype(np.uint8).tobytes())
+        quals.append(rng.integers(0, 256, Lq).astype(np.uint8).tobytes())
+    return seqs, quals
+
+
+def encode_inputs_at(seqs, quals, dev, at_s: int, at_q: int):
+    """The chunk's inputs on `dev` with seq and qual as views that start
+    at_s and at_q bytes past a 16-byte boundary of a larger buffer (the
+    bytes around them random): the kernel must read them wherever they
+    start, and its widened spans touch the views' first and last bytes."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    chunk = enc.join(seqs, quals)
+    g = torch.Generator().manual_seed(at_s * 16 + at_q)
+    views = []
+    for buf, at in ((chunk.seq, at_s), (chunk.qual, at_q)):
+        big = torch.randint(0, 256, (at + len(buf) + 32,), generator=g,
+                            dtype=torch.uint8).to(dev)
+        big[at:at + len(buf)] = torch.from_numpy(np.array(buf)).to(dev)
+        views.append(big[at:at + len(buf)])
+    return enc.EncodeInputs(views[0], torch.from_numpy(chunk.soffs).to(dev),
+                            views[1], torch.from_numpy(chunk.qoffs).to(dev),
+                            chunk.soffs, chunk.qoffs)
+
+
 def encode_bytes(inp, two_half: bool) -> int:
     """The bytes an encode of these inputs must move (BOUNDS, encode)."""
     import numpy as np
@@ -1089,6 +1147,79 @@ def encode_call_split(seqs, quals, dev, calls) -> dict:
             "whole": med(whole[1:]), "numpy_encode_two_half": med(numpy_us)}
 
 
+def encode_layout_cases(dev, chunk) -> dict:
+    """Mismatches of both encode entries against their plain versions on
+    what the kernel's layout could get wrong: encode_shape_reads with seq
+    and qual starting at every byte offset 0-15 past a 16-byte boundary
+    (views into a larger buffer), and the first B reads of `chunk`
+    ((seqs, quals)) for B of 1, 2, one less, as many as and one more than
+    the grid's warps, and several times them. {case: mismatches}."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    out = {}
+    seqs, quals = encode_shape_reads(np.random.default_rng(SEED + 1300))
+    want = {e: getattr(enc, f"encode_{e}_plain")(
+        *enc.chunk_inputs(seqs, quals, "cpu"))
+        for e in ("two_half", "composite")}
+    for at in range(16):
+        inp = encode_inputs_at(seqs, quals, dev, at, (5 * at + 3) % 16)
+        for e, w in want.items():
+            got = getattr(enc, f"encode_{e}_dev")(*inp)
+            out[f"{e}_at{at}"] = sum(int((g.cpu() != x).sum())
+                                     for g, x in zip(got, w))
+    gw = enc.grid_warps(dev)
+    for B in (1, 2, gw - 1, gw, gw + 1, 3 * gw + 5):
+        inp = enc.chunk_inputs(chunk[0][:B], chunk[1][:B], dev)
+        for e in ("two_half", "composite"):
+            got = getattr(enc, f"encode_{e}_dev")(*inp)
+            w = getattr(enc, f"encode_{e}_plain")(*inp)
+            out[f"{e}_b{B}"] = sum(int((g != x).sum()) for g, x in
+                                   zip(got, w)) + int(len(got[0]) != B)
+    torch.cuda.synchronize()
+    return out
+
+
+def encode_kernel_usage() -> dict:
+    """csrc/encode.cu's two kernels as compiled: registers and spills
+    (`nvcc -Xptxas -v`), shared memory and the SASS of the read loop
+    (`utils/kernel_report`: its static instructions, the wait and the
+    staging inside, and that over the 2E columns a warp's trip maps):
+    {"two_half" | "composite": {...}}."""
+    from sicelore_tpu_torch.ops import _build
+    from sicelore_tpu_torch.ops.edgescan import E
+    from sicelore_tpu_torch.utils import kernel_report as kr
+    lib = _build.build_all()["encode"]
+    sass = subprocess.run([kr._tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    res, loops, ptx = kr.resources(lib), kr.hottest_loops(sass), \
+        kr.ptxas_usage("encode")
+    names = kr._demangle(sorted(set(res) | set(loops) | set(ptx)))
+    out = {}
+    for k, name in names.items():
+        m = re.search(r"encode_kernel<(?:\(bool\))?(1|0|true|false)>", name)
+        if m is None:
+            continue
+        entry = "two_half" if m.group(1) in ("1", "true") else "composite"
+        lp = loops.get(k, {})
+        out[entry] = {
+            "registers": ptx.get(k, {}).get("registers",
+                                            res.get(k, {}).get("registers")),
+            "spill_stores": ptx.get(k, {}).get("spill_stores"),
+            "spill_loads": ptx.get(k, {}).get("spill_loads"),
+            "static_shared": res.get(k, {}).get("shared"),
+            "sass_read_loop": lp.get("outer_instructions"),
+            "sass_a_column": lp.get("outer_instructions", 0) / (2 * E)}
+    if set(out) != {"two_half", "composite"}:
+        raise SystemExit(f"encode_kernel_usage: no two encode kernels in "
+                         f"{sorted(names.values())}")
+    smem = _build.load("encode").encode_shared_bytes()
+    for u in out.values():
+        u["dynamic_shared_a_block"] = smem
+    return out
+
+
 def encode_phase(dev, chunks, int32_hz) -> dict:
     """csrc/encode.cu's two entries against their plain versions on the
     card, byte for byte: on each chunk of `chunks` ({tag: (seqs, quals)},
@@ -1108,6 +1239,7 @@ def encode_phase(dev, chunks, int32_hz) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 1100)
     res = {}
+    usage = encode_kernel_usage()
     for tag, (seqs, quals) in chunks.items():
         inp = enc.chunk_inputs(seqs, quals, dev)
         vars_ = [inp] + encode_variants(inp, g, TIMED_CALLS)
@@ -1124,6 +1256,8 @@ def encode_phase(dev, chunks, int32_hz) -> dict:
                 "device_ms": device_ms(lambda a: kern(*a), vars_[1:]),
                 "burst_ms": burst_ms(lambda a: kern(*a), vars_[1:])})
             res[key]["share"] = res[key]["bound_ms"] / res[key]["device_ms"]
+        for entry, u in usage.items():
+            res[f"encode_{entry}_{tag}"].update(u)
         two = res[f"encode_two_half_{tag}"]
         two["wrapper_host_us"] = host_us(
             lambda: enc.encode_two_half_dev(*inp), 200)
@@ -1158,6 +1292,7 @@ def encode_phase(dev, chunks, int32_hz) -> dict:
                 int((w != x.cpu()).sum()) + int((w.numpy() != o).sum())
                 + int((w != c.cpu()).sum())
                 for w, x, c, o in zip(want, got, cut, want_np))
+    cases.update(encode_layout_cases(dev, chunks["3p"]))
     res["encode_edge_cases"] = {"mismatches": sum(cases.values()),
                                 "cases": cases, "reads": n,
                                 "spans": spans}

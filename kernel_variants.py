@@ -8,10 +8,12 @@ nothing imports it.
     python3 kernel_variants.py edge     # edge scan: parts, general path, reads a block
     python3 kernel_variants.py feed     # tile feed: group size, blocks an SM
     python3 kernel_variants.py pairwise # UMI distances: rows a thread, tile
+    python3 kernel_variants.py encode   # read encoding: stages, shape, routes
     python3 kernel_variants.py host [--root DIR]   # wrappers' host time
     python3 kernel_variants.py group [--root DIR]  # a UMI group call's time
 
-band, win1, tile, edge, feed and pairwise build a copy of csrc/<kernel>.cu
+band, win1, tile, edge, feed, pairwise and encode build a copy of
+csrc/<kernel>.cu
 once a variant, the variant made by exact text replacement (and nvcc -D
 flags), so an edit of the kernel that moves a patched line makes this script
 fail loudly instead of timing something else; all nvcc runs go in parallel.
@@ -67,6 +69,20 @@ against the plain version first, at chip_smoke.py's 288-, 3,000- and
 8,192-UMI groups; each line carries the group's bound
 (chip_smoke.pairwise_work at this card's SMs and maximum SM clock).
 
+encode: encode.cu (both entries) built with -D knobs: the base (2
+stages a warp, 8 warps a block, 4 blocks an SM, bulk copies in, lanes'
+words out, the four-byte map) against s1 / s3 (1 or 3 stages), w<warps>_b
+<blocks> (other block shapes), ldg (the lanes copy each span into the
+stage with 16-byte ld.global.nc: no copy in flight while a read is
+mapped), bulk_store (rows out from shared memory by cp.async.bulk) and
+byte_map (byte by byte through a table in shared memory), each checked
+against encode_two_half_plain / encode_composite_plain first, over
+chip_smoke.py's first 3p and 5p chunks (32,768 reads) in three copies
+with fresh content that launches rotate through; each line carries the
+bound (chip_smoke.encode_bytes), each variant's share of it and, as a
+yardstick of the rate this card reaches, `copy_ms`: one device copy
+(`Tensor.copy_`, three sources in turn) that moves as many bytes.
+
 host: chip_smoke.py's `host_us` of each of its `host_calls` (one
 `myers_win1`, one `tile_scan`, one 3p and one 5p `edge_scan2` call) against
 the `sicelore_tpu_torch` under --root (default: this checkout; a tree whose
@@ -79,7 +95,8 @@ call on the card (its groups of 288, 3,000 and 8,192 UMIs,
 chip_smoke.GROUP_CALLS calls each) for the package under --root, the way
 `host` compares two trees.
 
-Needs a CUDA GPU (and nvcc for band, win1, tile, edge, feed, pairwise)."""
+Needs a CUDA GPU (and nvcc for band, win1, tile, edge, feed, pairwise,
+encode)."""
 from __future__ import annotations
 
 import argparse
@@ -235,6 +252,17 @@ PAIR_VARIANTS = {"base": [], **{f"r{r}_t{tt}": _pair_shape(r, tt)
                                 for tt in (64, 128) for r in (1, 2, 4)}}
 
 
+ENCODE_VARIANTS = {
+    "base": [], "s1": ["-DENC_STAGES=1"], "s3": ["-DENC_STAGES=3"],
+    "w4_b8": ["-DENC_WARPS=4", "-DENC_BLOCKS=8"],
+    "w8_b2": ["-DENC_WARPS=8", "-DENC_BLOCKS=2"],
+    "w8_b8": ["-DENC_WARPS=8", "-DENC_BLOCKS=8"],
+    "w16_b2": ["-DENC_WARPS=16", "-DENC_BLOCKS=2"],
+    "ldg": ["-DENC_BULK_COPY=0"], "bulk_store": ["-DENC_BULK_STORE=1"],
+    "byte_map": ["-DENC_WORD_MAP=0"],
+}
+
+
 def patched(src: str, reps) -> str:
     for old, new in reps:
         if src.count(old) != 1:
@@ -269,12 +297,18 @@ def build(stem, variants, entry, n_ptr, n_int, common=()):
         if p.wait():
             raise SystemExit(f"kernel_variants: nvcc failed on {stem} {k}:\n"
                              + (out / f"{stem}_{k}.log").read_text())
-        f = getattr(ctypes.CDLL(str(out / f"{stem}_{k}.so")), entry)
-        f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                      + [ctypes.c_void_p])
-        f.restype = ctypes.c_int
-        fns[k] = f
+        fns[k] = bind_built(out / f"{stem}_{k}.so", entry, n_ptr, n_int)
     return fns
+
+
+def bind_built(lib: Path, entry, n_ptr, n_int):
+    """C entry `entry` of a built variant library: n_ptr pointers, n_int
+    ints and the stream, returning a cudaError_t as int."""
+    f = getattr(ctypes.CDLL(str(lib)), entry)
+    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                  + [ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    return f
 
 
 def least_ms(launch, args) -> float:
@@ -563,6 +597,74 @@ def run_pairwise() -> None:
         del ref, res
 
 
+def run_encode() -> None:
+    import torch
+
+    import chip_smoke
+    from sicelore_tpu_torch.ops import _build
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    two = build("encode", {k: ([], f) for k, f in ENCODE_VARIANTS.items()},
+                "encode_two_half_launch", 7, 1)
+    out = _build.BUILD_DIR.parent / "kernel_variants"
+    comp = {k: bind_built(out / f"encode_{k}.so", "encode_composite_launch",
+                          6, 1) for k in ENCODE_VARIANTS}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = _build.stream_handle(dev)
+    sm_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0])
+    int32_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * chip_smoke.INT32_LANES_PER_SM * sm_hz)
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 1100)
+    for chem in ("3p", "5p"):
+        chunk = chunk_reads(chem)
+        inp = enc.chunk_inputs(chunk.seqs, chunk.quals, dev)
+        # three copies of the bytes (more than the L2 holds), each with
+        # fresh content, that launches rotate through
+        copies = [inp] + chip_smoke.encode_variants(inp, g, 2)
+        B = len(chunk.seqs)
+        for entry, fns in (("two_half", two), ("composite", comp)):
+            plain = getattr(enc, f"encode_{entry}_plain")(*copies[0])
+            got = [torch.empty_like(t) for t in plain]
+            if entry == "composite":
+                got.append(None)
+
+            def launch(k, a):
+                ptrs = [a.seq.data_ptr(), a.soffs.data_ptr(),
+                        a.qual.data_ptr(), a.qoffs.data_ptr(),
+                        *(t.data_ptr() for t in got if t is not None)]
+                _build.check(fns[k](*ptrs, B, stream), f"encode {k}")
+
+            def check(k):
+                for t in got:
+                    if t is not None:
+                        t.fill_(-1)
+                launch(k, copies[0])
+                if not all(torch.equal(x, p) for x, p in zip(got, plain)):
+                    raise SystemExit(f"kernel_variants: encode {k} differs "
+                                     f"from the plain version ({chem}, "
+                                     f"{entry})")
+            ms = in_turns(fns, launch, check, copies)
+            b = chip_smoke.bound(chip_smoke.encode_bytes(
+                inp, entry == "two_half"), 0, int32_hz)
+            # a yardstick: one device copy that moves as many bytes (half
+            # read, half written), from three sources in turn
+            srcs = [torch.empty(b["bytes"] // 2, dtype=torch.uint8,
+                                device=dev) for _ in range(3)]
+            dst = torch.empty_like(srcs[0])
+            copy_ms = least_ms(dst.copy_, srcs)
+            print(json.dumps({"shape": [chem, entry, B], "ms": ms, **b,
+                              "share": {k: b["bound_ms"] / t
+                                        for k, t in ms.items()},
+                              "copy_ms": copy_ms,
+                              "copy_share": b["bound_ms"] / copy_ms}),
+                  flush=True)
+            del srcs, dst
+        del copies, inp
+        torch.cuda.empty_cache()
+
+
 def _package_under(root: Path):
     """chip_smoke (this checkout's) with the sicelore_tpu_torch under root
     first on the path."""
@@ -606,7 +708,7 @@ def run_host(root: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("band", "win1", "tile", "edge", "feed",
-                                     "pairwise", "host", "group"))
+                                     "pairwise", "encode", "host", "group"))
     ap.add_argument("--root", default=str(HERE),
                     help="host, group: the checkout whose package is timed")
     a = ap.parse_args()
@@ -620,8 +722,8 @@ def main() -> int:
             Path(a.root).resolve())
     else:
         {"band": run_band, "win1": run_win1, "tile": run_tile,
-         "edge": run_edge, "feed": run_feed,
-         "pairwise": run_pairwise}[a.what]()
+         "edge": run_edge, "feed": run_feed, "pairwise": run_pairwise,
+         "encode": run_encode}[a.what]()
     return 0
 
 

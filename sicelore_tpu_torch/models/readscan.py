@@ -12,11 +12,14 @@ returns.
 Kernels (CUDA for CUDA tensors, plain torch for CPU tensors):
   * read encoding   ops.encode_cuda.encode_two_half_dev (every v2 pass: a
                     chunk's raw bytes to the [B, 2E] rows the scans read,
-                    qv2 and qsum), encode_composite_dev (scan_reads)
+                    qv2 and qsum), encode_composite_dev (scan_reads);
+                    csrc/encode.cu: bulk copies of each read's spans into
+                    a shared-memory ring, mapped four bytes an operation
   * edge scan       ops.edgescan_cuda.edge_scan2   (pass 1, split rescans,
-                                                    streaming pass 2; 3p)
+                                                    streaming pass 2; 3p
+                                                    and 5p)
   * window search   ops.editdist.myers_win1        (the composed edge scan of
-                    5p and other configs outside the edge kernel, the v1
+                    configs outside the edge kernel's envelope, the v1
                     composite scan, scan_internal)
   * whitelist sweep ops.bcsearch.bc_sweep          (pass 2)
   * chimera scan    ops.tilescan_cuda.tile_scan    (pass 2; and pass 1 of

@@ -26,6 +26,7 @@ the oracles the tests hold these to the JAX package with.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 import weakref
 from typing import NamedTuple
@@ -154,11 +155,13 @@ class Staged:
     devices of `device_type`, each span ready for one upload. On the
     CPU the spans are views of the chunk. Otherwise each span's region
     (rebased soffs and qoffs, its sequence bytes, its quality bytes, each
-    16-byte aligned) lies in a pinned staging buffer of `_ring`, or, for a
-    chunk over STAGING_BYTES, in pageable memory (a copy the host waits
-    for). Upload every span before staging the chunk after next: the ring
-    has two buffers, and staging a third chunk while the first is alive
-    with a span not uploaded raises RuntimeError."""
+    16-byte aligned; its upload whole 16-byte words, so the kernel's
+    aligned copies of a span's edges stay inside it) lies in a pinned
+    staging buffer of `_ring`, or, for a chunk over STAGING_BYTES, in
+    pageable memory (a copy the host waits for). Upload every span before
+    staging the chunk after next: the ring has two buffers, and staging a
+    third chunk while the first is alive with a span not uploaded raises
+    RuntimeError."""
 
     def __init__(self, chunk: Chunk, spans, device_type: str):
         self.chunk = chunk
@@ -204,19 +207,22 @@ class Staged:
         if (a, b) in self.views:
             return self.views[(a, b)]
         so, qo, (at, no, hs, hq, end) = self.regions[(a, b)]
-        d = torch.empty(end - at, dtype=torch.uint8, device=dev)
+        # whole 16-byte words: the kernel's aligned 16-byte copies of a
+        # span's edges stay inside the region
+        d = torch.empty(_a16(end - at), dtype=torch.uint8, device=dev)
+        words = self.host[at:at + d.numel()]
         if self.ring_index is None:
-            d.copy_(self.host[at:end])
+            d.copy_(words)
         else:
             def copy():
-                d.copy_(self.host[at:end], non_blocking=True)
+                d.copy_(words, non_blocking=True)
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(d.device))
                 return ev
             _ring.upload(self.ring_index, self, (a, b), copy)
         n8 = so.nbytes
         return EncodeInputs(d[hs - at:hq - at][:int(so[-1])],
-                            d[:n8].view(torch.int64), d[hq - at:],
+                            d[:n8].view(torch.int64), d[hq - at:end - at],
                             d[no:no + n8].view(torch.int64), so, qo)
 
 
@@ -390,3 +396,16 @@ def encode_composite_dev(seq, soffs, qual, qoffs, host_soffs=None,
 
 
 encode_composite_dev.launches = 0
+
+
+def grid_warps(device) -> int:
+    """The warps of a full csrc/encode.cu grid on CUDA `device` (its SMs x
+    blocks an SM x warps a block): a launch of more reads gives a warp
+    several, so tests launch around it."""
+    dev = torch.device(device)
+    fn = _build.load("encode").encode_grid_warps
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        n = fn()
+    _build.check(max(-n, 0), "encode_grid_warps")
+    return n

@@ -10,11 +10,15 @@ Needs nvcc and cuobjdump (the CUDA toolkit); builds the libraries first if
 they are not built. Prints one JSON line per kernel:
 {"lib", "kernel", "registers", "shared", "stack", "loop_instructions",
 "loop_mix": {opcode: count}, "instructions", "loops": [[first, length],
-...]}. Divide `loop_instructions` by the columns (or cells) the source
-unrolls into one trip of the loop to get the count a column; the opcodes on
-the integer pipe are everything but LDS/LDG/STS/STG, BRA/BAR and SHFL.
+...], "outer_instructions"}. Divide `loop_instructions` by the columns (or
+cells) the source unrolls into one trip of the loop to get the count a
+column; the opcodes on the integer pipe are everything but
+LDS/LDG/STS/STG, BRA/BAR and SHFL.
 `instructions` counts the kernel's SASS; `loops` lists every innermost loop
-(index of its first instruction, instructions a trip)."""
+(index of its first instruction, instructions a trip);
+`outer_instructions` is the longest loop with the loops inside it (a
+kernel whose per-item loop holds a wait loop, as csrc/encode.cu's read
+loop does). `ptxas_usage` gives nvcc -Xptxas -v's registers and spills."""
 from __future__ import annotations
 
 import argparse
@@ -89,14 +93,53 @@ def hottest_loops(sass: str) -> dict[str, dict]:
         best = max(inner, key=lambda lp: lp[1] - lp[0], default=None)
         if best is None:
             out[name] = {"loop_instructions": 0, "loop_mix": {},
-                         "instructions": len(ins), "loops": []}
+                         "instructions": len(ins), "loops": [],
+                         "outer_instructions": 0}
             continue
         mix = Counter(op.split(".")[0] for _, op, _ in
                       ins[best[0]:best[1] + 1])
+        outer = max(loops, key=lambda lp: lp[1] - lp[0])
         out[name] = {"loop_instructions": best[1] - best[0] + 1,
                      "loop_mix": dict(mix.most_common()),
                      "instructions": len(ins),
-                     "loops": [[a, b - a + 1] for a, b in sorted(inner)]}
+                     "loops": [[a, b - a + 1] for a, b in sorted(inner)],
+                     "outer_instructions": outer[1] - outer[0] + 1}
+    return out
+
+
+def ptxas_usage(stem: str) -> dict[str, dict]:
+    """{mangled kernel: {registers, spill_stores, spill_loads, stack}} of
+    csrc/<stem>.cu as `nvcc -Xptxas -v` reports it (a build of its own,
+    into a temporary file beside the libraries)."""
+    src = _build.CSRC / f"{stem}.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _build.BUILD_DIR / f"{stem}.ptxas.tmp"
+    try:
+        txt = subprocess.run(
+            [_tool("nvcc"), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(tmp), str(src)], capture_output=True, text=True,
+            check=True).stderr
+    finally:
+        tmp.unlink(missing_ok=True)
+    out, name = {}, None
+    for line in txt.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) "
+                      r"'?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
     return out
 
 

@@ -160,36 +160,269 @@ def test_plain_composite_equals_jax(name):
         np.testing.assert_array_equal(a, b)
 
 
-def _kernel_code_of():
-    """csrc/encode.cu's byte map (`code_of`), modelled from its source:
-    NUL is PAD, then b & 0xDF against the BASES letters, else N_CODE."""
+def _source_constants():
+    """The integer constants of csrc/encode.cu (its `constexpr int` and
+    `constexpr unsigned` lines), evaluated in order."""
     src = SRC.read_text()
-    m = re.search(r"constexpr unsigned BASES = '(.)' \| '(.)' << 8 \| "
-                  r"'(.)' << 16 \| '(.)' << 24;", src)
-    bases = [ord(x) for x in m.groups()]
-    const = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-             for k in ("E", "PAD", "N_CODE")}
-    assert "if (b == 0u) return PAD;" in src
-    assert "const unsigned u = b & 0xDFu;" in src
+    env = {}
+    for kind, name, expr in re.findall(
+            r"constexpr (int|unsigned) (\w+) = ([^;]+);", src):
+        expr = re.sub(r"'(.)'", lambda m: str(ord(m.group(1))), expr)
+        expr = re.sub(r"(0x[0-9A-Fa-f]+|\d+)u\b", r"\1", expr)
+        expr = re.sub(r"ENC_\w+", "0", expr)     # the knobs: not modelled
+        expr = expr.replace("/", "//")            # C's integer division
+        env[name] = eval(expr, {"max": max, "min": min}, dict(env))
+    return src, env
 
-    def code_of(b):
-        if b == 0:
-            return const["PAD"]
-        u = b & 0xDF
-        return bases.index(u) if u in bases else const["N_CODE"]
-    return code_of, const
+
+def _prmt(a, b, s):
+    """PTX prmt.b32 (default mode): result byte i is byte s_i & 7 of b:a,
+    or, when s_i >= 8, that byte's sign replicated."""
+    pool = [(a >> 8 * i) & 255 for i in range(4)] + \
+        [(b >> 8 * i) & 255 for i in range(4)]
+    out = 0
+    for i in range(4):
+        n = (s >> 4 * i) & 15
+        v = pool[n & 7]
+        if n & 8:
+            v = 255 if v & 128 else 0
+        out |= v << 8 * i
+    return out
+
+
+def _kernel_code_of():
+    """csrc/encode.cu's four-byte code map (`code_word`), modelled from its
+    source: each byte's low nibble picks its slot's letter, case mask and
+    code by PRMT; a zero test of (byte ^ letter) & case picks the code,
+    else N_CODE."""
+    src, k = _source_constants()
+    flat = " ".join(src.split())
+    for line in (
+            "prmt((w & 0x0F0F0F0Fu) | (w >> 4 & 0xF0F0F0F0u), 0u, 0x0020u);",
+            "const unsigned y = (w ^ prmt(LETTER_LO, LETTER_HI, sel)) & "
+            "prmt(CASE_LO, CASE_HI, sel);",
+            "const unsigned z = ~(((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y) & "
+            "0x80808080u;",
+            "const unsigned eq = prmt(z, 0u, 0xBA98u);",
+            "return (prmt(CODE_LO, CODE_HI, sel) & eq) | "
+            "(N_CODE * ONES & ~eq);"):
+        assert line in flat, line
+    M = 0xFFFFFFFF
+
+    def code_word(w):
+        sel = _prmt((w & 0x0F0F0F0F) | (w >> 4 & 0xF0F0F0F0), 0, 0x0020)
+        y = (w ^ _prmt(k["LETTER_LO"], k["LETTER_HI"], sel)) & \
+            _prmt(k["CASE_LO"], k["CASE_HI"], sel)
+        z = ~(((y & 0x7F7F7F7F) + 0x7F7F7F7F) | y) & 0x80808080 & M
+        eq = _prmt(z, 0, 0xBA98)
+        return ((_prmt(k["CODE_LO"], k["CODE_HI"], sel) & eq)
+                | (k["N_CODE"] * k["ONES"] & ~eq)) & M
+    return code_word, k
+
+
+def _qual_word_model():
+    """csrc/encode.cu's four-byte quality map (`qual_word`), modelled from
+    its source."""
+    src, k = _source_constants()
+    flat = " ".join(src.split())
+    for line in ("const unsigned d = (q | 0x80808080u) - 33u * ONES;",
+                 "const unsigned ge = prmt(d | q, 0u, 0xBA98u);",
+                 "return (d ^ (~q & 0x80808080u)) & ge;"):
+        assert line in flat, line
+    M = 0xFFFFFFFF
+
+    def qual_word(q):
+        d = ((q | 0x80808080) - 33 * k["ONES"]) & M
+        ge = _prmt(d | q, 0, 0xBA98)
+        return (d ^ (~q & 0x80808080)) & ge & M
+    return qual_word
+
+
+def _words_with_every_byte_everywhere():
+    """(words, their bytes [n, 4]): every byte value in every one of the
+    four positions of a word, beside every other value."""
+    rng = np.random.default_rng(13)
+    b = np.concatenate([np.stack([np.roll(np.arange(256), r * j)
+                                  for j in range(4)], 1)
+                        for r in (1, 7, 64)]
+                       + [rng.integers(0, 256, (4096, 4))]).astype(np.uint32)
+    words = b[:, 0] | b[:, 1] << 8 | b[:, 2] << 16 | b[:, 3] << 24
+    for pos in range(4):
+        assert set(b[:, pos].tolist()) == set(range(256))
+    return words.tolist(), b
 
 
 def test_kernel_byte_table_is_enc_with_nul_as_pad():
-    """The kernel's table maps all 256 byte values where `_ENC` does, with
-    the NUL byte mapped to PAD (`_ENC_PAD0`); its E, PAD and N_CODE are the
+    """The kernel's four-byte code map gives each byte of a word, in each of
+    the four positions, all 256 values, the code `_ENC` gives it, with the
+    NUL byte mapped to PAD (`_ENC_PAD0`); its E, PAD and N_CODE are the
     package's."""
-    code_of, const = _kernel_code_of()
+    code_word, const = _kernel_code_of()
     want = dna._ENC.copy()
     want[0] = dna.PAD
-    np.testing.assert_array_equal([code_of(b) for b in range(256)], want)
     np.testing.assert_array_equal(want, eg._ENC_PAD0)
-    assert const == {"E": E, "PAD": dna.PAD, "N_CODE": dna.N_CODE}
+    words, b = _words_with_every_byte_everywhere()
+    got = np.array([code_word(w) for w in words], np.uint32)
+    for pos in range(4):
+        np.testing.assert_array_equal((got >> 8 * pos) & 255,
+                                      want[b[:, pos]], err_msg=str(pos))
+    assert {k: const[k] for k in ("E", "PAD", "N_CODE")} == {
+        "E": E, "PAD": dna.PAD, "N_CODE": dna.N_CODE}
+
+
+def test_kernel_quality_map_wraps_as_int8():
+    """The kernel's four-byte quality map gives each byte of a word, in each
+    position, all 256 values, (int8)(q - 33) for q >= 33 (wrapping above
+    160) and 0 below, as the plain version."""
+    qual_word = _qual_word_model()
+    words, b = _words_with_every_byte_everywhere()
+    got = np.array([qual_word(w) for w in words], np.uint32)
+    want = np.where(np.arange(256) >= 33, np.arange(256) - 33, 0) & 255
+    for pos in range(4):
+        np.testing.assert_array_equal((got >> 8 * pos) & 255,
+                                      want[b[:, pos]], err_msg=str(pos))
+
+
+def _from_col(c, lo):
+    """csrc/encode.cu's `from_col`: 0xFF in byte j when c + j >= lo (a
+    funnel shift, its count clamped to 32)."""
+    M = 0xFFFFFFFF
+    return (M << min(max(8 * (lo - c), 0), 32)) & M
+
+
+def _below_col(c, hi):
+    return ~_from_col(c, hi) & 0xFFFFFFFF
+
+
+def _kernel_model(seqs, quals, two_half, seq_at, qual_at, rng):
+    """csrc/encode.cu read by read as the card runs it: each stream's bytes
+    at an address seq_at / qual_at past a 16-byte boundary amid junk; each
+    read's spans (`plan`) widened to 16 bytes and copied into a stage full
+    of junk at GUARD (+ TAIL_AT for a tail), PAD_BELOW bytes of junk
+    below it; then the words of each row from the stage (`stage_word`),
+    through the word maps and the masks of the read's key. Returns codes,
+    qv [B, 2E] and qsum [B] as numpy."""
+    _, k = _source_constants()
+    code_word, _ = _kernel_code_of()
+    qual_word = _qual_word_model()
+    W2_, GUARD, TAIL_AT, SBUF = k["W2"], k["GUARD"], k["TAIL_AT"], k["SBUF"]
+    ONES, PAD_ = k["ONES"], k["PAD"]
+    assert k["SPAN"] == 2 * TAIL_AT and k["WORDS"] == W2_ // 4
+    chunk = enc.join(seqs, quals)
+
+    def memory(buf, at):
+        mem = rng.integers(0, 256, at + len(buf) + 64).astype(np.uint8)
+        mem[at:at + len(buf)] = buf
+        return mem
+
+    mems = (memory(chunk.seq, seq_at), memory(chunk.qual, qual_at))
+    ats = (seq_at, qual_at)
+    offs = (chunk.soffs, chunk.qoffs)
+
+    def plan(x, r):
+        x0, n = int(offs[x][r]), int(offs[x][r + 1] - offs[x][r])
+        a = ats[x] + x0
+        oh = a & 15
+        if n <= W2_:
+            size = (((a + n + 15) & ~15) - (a - oh)) if n else 0
+            return [(a - oh, size)], n | oh << 16
+        t = a + n - E
+        ot = t & 15
+        return [(a - oh, ((a + E + 15) & ~15) - (a - oh)),
+                (t - ot, ((t + E + 15) & ~15) - (t - ot))], \
+            (W2_ + 1) | oh << 16 | ot << 20
+
+    PAD_BELOW = k["PAD_BELOW"]
+
+    def stage_word(buf, i):
+        """4 bytes at stage index i of a stage with PAD_BELOW bytes of junk
+        before it (the shared memory below a warp's stage)."""
+        assert i >= -PAD_BELOW and i + 8 <= SBUF
+        j = PAD_BELOW + (i & ~3)
+        w = buf[j:j + 8].view(np.uint64)[0]
+        return int(w >> np.uint64(8 * (i & 3))) & 0xFFFFFFFF
+
+    B = len(seqs)
+    codes = np.zeros((B, W2_), np.uint8)
+    qv = np.zeros((B, W2_), np.uint8)
+    qsum = np.zeros(B, np.int32)
+    for r in range(B):
+        bufs, keys = [], []
+        for x in range(2):
+            spans, key = plan(x, r)
+            buf = rng.integers(0, 256, PAD_BELOW + SBUF).astype(np.uint8)
+            for h, (a, size) in enumerate(spans):
+                if size == 0:           # L = 0: no copy
+                    continue
+                assert a % 16 == 0 and size % 16 == 0
+                assert a >= 0 and a + size <= len(mems[x])
+                at = PAD_BELOW + GUARD + h * TAIL_AT
+                assert at + size <= PAD_BELOW + GUARD + k["SPAN"]
+                buf[at:at + size] = mems[x][a:a + size]
+            bufs.append(buf)
+            keys.append(key)
+        n_s, n_q = keys[0] & 0xFFFF, keys[1] & 0xFFFF
+        oh_s, ot_s = keys[0] >> 16 & 15, keys[0] >> 20 & 15
+        oh_q, ot_q = keys[1] >> 16 & 15, keys[1] >> 20 & 15
+        sb0, qb0 = GUARD + oh_s, GUARD + oh_q
+        if two_half:
+            sb1 = GUARD + TAIL_AT + ot_s - E if n_s > W2_ else sb0 + n_s - W2_
+            qb1 = GUARD + TAIL_AT + ot_q - E if n_q > W2_ else qb0 + n_q - W2_
+            sc1, qc1 = max(E, W2_ - n_s), max(E, W2_ - n_q)
+            tail = _from_col
+        else:
+            sb1 = GUARD + TAIL_AT + ot_s - E if n_s > W2_ else sb0
+            qb1 = GUARD + TAIL_AT + ot_q - E if n_q > W2_ else qb0
+            sc1, qc1 = min(n_s, W2_), min(n_q, W2_)
+            tail = _below_col
+        sc0, qc0 = min(n_s, E), min(n_q, E)
+        uc1 = max(E, 3 * E - n_s)
+        acc = 0
+        for t in range(k["WORDS"]):
+            c = 4 * t
+            h = t >= k["HALF_WORDS"]
+            sw = stage_word(bufs[0], (sb1 if h else sb0) + c)
+            qw = stage_word(bufs[1], (qb1 if h else qb0) + c)
+            sin = tail(c, sc1) if h else _below_col(c, sc0)
+            qin = tail(c, qc1) if h else _below_col(c, qc0)
+            cw = (code_word(sw) & sin) | (PAD_ * ONES & ~sin & 0xFFFFFFFF)
+            vw = qual_word(qw) & qin
+            um = _from_col(c, uc1) if h else sin
+            acc += int(np.frombuffer(int(vw & um).to_bytes(4, "little"),
+                                     np.int8).astype(np.int32).sum())
+            codes[r, c:c + 4] = np.frombuffer(cw.to_bytes(4, "little"),
+                                              np.uint8)
+            qv[r, c:c + 4] = np.frombuffer(vw.to_bytes(4, "little"),
+                                           np.uint8)
+        qsum[r] = acc
+    return codes.view(np.int8), qv.view(np.int8), qsum
+
+
+def _model_reads():
+    """The edge set's reads cut to one of each kind (every length class,
+    qualities shorter and longer), the reads whose spans start and end at
+    every offset in a 16-byte word, and L = 0 / Lq = 0 beside full reads."""
+    seqs, quals = chip_smoke.encode_edge_reads(np.random.default_rng(21))
+    seqs, quals = seqs[::5], quals[::5]
+    more = chip_smoke.encode_shape_reads(np.random.default_rng(22))
+    return seqs + more[0], quals + more[1]
+
+
+@pytest.mark.parametrize("entry", ["two_half", "composite"])
+@pytest.mark.parametrize("at", [(0, 0), (1, 15), (7, 3), (15, 8)])
+def test_kernel_model_equals_plain(entry, at):
+    """The kernel, modelled from its source (spans widened to 16-byte
+    addresses into a stage of junk, words at any byte offset, the word
+    maps, the masks of each read's key, qsum), gives the plain version's
+    rows byte for byte, whatever the sequences' and qualities' addresses
+    mod 16 (`at`)."""
+    seqs, quals = _model_reads()
+    rng = np.random.default_rng(at[0] * 16 + at[1])
+    got = _kernel_model(seqs, quals, entry == "two_half", *at, rng)
+    want = getattr(enc, f"encode_{entry}_plain")(
+        *enc.chunk_inputs(seqs, quals, "cpu"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
 
 
 def _inputs():
@@ -281,6 +514,33 @@ def test_spans_rebase_and_equal_one_launch(spans, route, monkeypatch):
         parts.append(enc.encode_two_half_dev(*inp))
     for w, p in zip(whole, zip(*parts)):
         assert torch.equal(w, torch.cat(p))
+
+
+@pytest.mark.parametrize("spans", [[(0, 20)], [(0, 1), (1, 20)],
+                                   [(0, 7), (7, 13), (13, 20)]])
+def test_staged_regions_are_whole_words(spans, monkeypatch):
+    """Each span's upload, laid out as for a card (the pageable route, the
+    one a CPU can take), is whole 16-byte words: the four tensors lie in
+    one buffer whose size is a multiple of 16, each starts on a 16-byte
+    boundary of it, and the 16-byte word holding the qualities' last byte
+    lies inside it, so the kernel's aligned copies of a span's edges never
+    leave the upload."""
+    seqs, quals = chip_smoke.encode_edge_reads(np.random.default_rng(6))
+    seqs, quals = seqs[1::3][:20], quals[1::3][:20]
+    monkeypatch.setattr(enc, "STAGING_BYTES", 0)
+    st = enc.Staged(enc.join(seqs, quals), spans, "cuda")
+    assert st.ring_index is None
+    for a, b in spans:
+        inp = st.upload(torch.device("cpu"), a, b)
+        store = inp.seq.untyped_storage()
+        base = store.data_ptr()
+        assert store.nbytes() % 16 == 0
+        for t in inp[:4]:
+            assert t.untyped_storage().data_ptr() == base
+            assert (t.data_ptr() - base) % 16 == 0
+        end = inp.qual.data_ptr() - base + inp.qual.numel()
+        assert (end + 15) // 16 * 16 <= store.nbytes()
+        assert bytes(inp.qual.numpy()) == b"".join(quals[a:b])
 
 
 class _DoneEvent:

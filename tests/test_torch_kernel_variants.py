@@ -1,6 +1,7 @@
 """kernel_variants.py's patches still apply: each variant's replaced text is
 in its kernel source exactly once, so an edit of a kernel that moves a
 patched line fails here, on the CPU, and not first on the card."""
+import re
 import sys
 from pathlib import Path
 
@@ -20,6 +21,16 @@ SETS = {
                  {k: reps for k, (reps, _) in kv.EDGE_VARIANTS.items()}),
     "tilefeed": ((), kv.FEED_VARIANTS),
     "pairwise": ((), kv.PAIR_VARIANTS),
+    "encode": ((), {k: [] for k in kv.ENCODE_VARIANTS}),
+}
+
+# the variants built with nvcc -D flags: {stem: (common patches,
+# {name: flags})}
+KNOBS = {
+    "bandalign": (kv.BAND_PATCHES, kv.BAND_VARIANTS),
+    "edgescan": (kv.EDGE_PATCHES,
+                 {k: flags for k, (_, flags) in kv.EDGE_VARIANTS.items()}),
+    "encode": ((), kv.ENCODE_VARIANTS),
 }
 
 
@@ -30,6 +41,22 @@ def test_every_variant_patch_applies(stem):
     for name, reps in variants.items():
         out = kv.patched(src, reps)
         assert (out != src) == bool(reps), name
+
+
+@pytest.mark.parametrize("stem", sorted(KNOBS))
+def test_every_variant_knob_is_read(stem):
+    """Each -D flag of a variant names a macro its (patched) kernel source
+    tests, so a renamed knob fails here instead of building the base
+    kernel under another name; encode's knobs each have a default."""
+    common, variants = KNOBS[stem]
+    src = kv.patched((_build.CSRC / f"{stem}.cu").read_text(), common)
+    tested = set(re.findall(r"#\s*(?:ifn?def|if)\s+!?(\w+)", src))
+    for name, flags in variants.items():
+        for f in flags:
+            knob = re.fullmatch(r"-D(\w+)(?:=\d+)?", f).group(1)
+            assert knob in tested, (name, knob)
+            if stem == "encode":
+                assert f"#ifndef {knob}\n#define {knob} " in src, knob
 
 
 def test_a_moved_line_fails_loudly():

@@ -811,3 +811,76 @@ def test_encode_kernel_pageable_route_and_refusals(dev, reads):
     codes, _, qsum = enc.encode_two_half_dev(*enc.chunk_inputs([], [], dev))
     assert codes.shape == (0, 2 * eg.E) and qsum.shape == (0,)
     assert enc.encode_two_half_dev.launches == before
+
+
+@pytest.mark.parametrize("entry", ["two_half", "composite"])
+@pytest.mark.parametrize("at", range(16))
+def test_encode_kernel_inputs_at_any_address(dev, at, entry):
+    """seq and qual as views starting 0-15 bytes past a 16-byte boundary
+    (the kernel widens each span to 16-byte addresses, so its copies reach
+    before the views' first byte and past their last): chip_smoke's
+    encode_shape_reads (lengths around 0, E, 2E and 3E in a row, L = 0
+    beside Lq = 0, L > 2E with Lq <= 2E and the reverse), exact."""
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    seqs, quals = chip_smoke.encode_shape_reads(np.random.default_rng(at))
+    want = getattr(enc, f"encode_{entry}_plain")(
+        *enc.chunk_inputs(seqs, quals, "cpu"))
+    got = getattr(enc, f"encode_{entry}_dev")(
+        *chip_smoke.encode_inputs_at(seqs, quals, dev, at, (5 * at + 3) % 16))
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+def _many_reads(n, seed=31):
+    rng = np.random.default_rng(seed)
+    pool = np.frombuffer(b"ACGTacgtN\x00", np.uint8)
+    seqs, quals = [], []
+    for i in range(n):
+        L = int(rng.choice([0, rng.integers(1, 2 * eg.E + 2),
+                            rng.integers(2 * eg.E, 3000)]))
+        Lq = max(L + int(rng.integers(-3, 4)) * (i % 5 == 0), 0)
+        seqs.append(rng.choice(pool, L).tobytes())
+        quals.append(rng.integers(0, 256, Lq).astype(np.uint8).tobytes())
+    return seqs, quals
+
+
+@pytest.mark.parametrize("entry", ["two_half", "composite"])
+@pytest.mark.parametrize("which", ["1", "2", "grid-1", "grid", "grid+1",
+                                   "3grid+5"])
+def test_encode_kernel_b_around_the_grid(dev, which, entry):
+    """B of 1, 2, one less than, as many as and one more than the warps of
+    a full grid (`grid_warps`: a warp takes several reads past it), and
+    several times them: every row exact, through the pinned staging."""
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    gw = enc.grid_warps(dev)
+    B = {"1": 1, "2": 2, "grid-1": gw - 1, "grid": gw, "grid+1": gw + 1,
+         "3grid+5": 3 * gw + 5}[which]
+    seqs, quals = _many_reads(B)
+    want = getattr(enc, f"encode_{entry}_plain")(
+        *enc.chunk_inputs(seqs, quals, "cpu"))
+    got = getattr(enc, f"encode_{entry}_dev")(
+        *enc.chunk_inputs(seqs, quals, dev))
+    for w, g in zip(want, got):
+        assert g.shape[0] == B and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("entry", ["two_half", "composite"])
+def test_encode_kernel_shape_reads_pageable(dev, entry):
+    """encode_shape_reads through the pageable staging (a chunk over
+    STAGING_BYTES) in spans of rebased offsets: exact."""
+    from sicelore_tpu_torch.ops import encode_cuda as enc
+    seqs, quals = chip_smoke.encode_shape_reads(np.random.default_rng(40))
+    spans = [(0, 1), (1, 30), (30, len(seqs))]
+    want = getattr(enc, f"encode_{entry}_plain")(
+        *enc.chunk_inputs(seqs, quals, "cpu"))
+    limit = enc.STAGING_BYTES
+    enc.STAGING_BYTES = 1024
+    try:
+        st = enc.Staged(enc.join(seqs, quals), spans, "cuda")
+    finally:
+        enc.STAGING_BYTES = limit
+    assert st.ring_index is None
+    kern = getattr(enc, f"encode_{entry}_dev")
+    parts = [kern(*st.upload(dev, a, b)) for a, b in spans]
+    for w, g in zip(want, zip(*parts)):
+        assert torch.equal(torch.cat(g).cpu(), w)
