@@ -1707,36 +1707,27 @@ def timed_fn(secs, owner, attr, key, sync=False):
 
 
 def consensus_split(bam, out_fastq) -> dict:
-    """compute_consensus once more with a timer around each stage (device
-    stages end in a synchronize): seconds by stage."""
-    from sicelore_tpu_torch.ops import poa, poa_cuda
+    """compute_consensus once more with the program's tracer on: seconds
+    by span name (`utils/trace.py`; the engine's spans `consensus.route`,
+    `.host`, `.pack`, `.upload`, `.device`, `.wait` and `.decode` are
+    siblings, so they add up), the host engine's also by route
+    (`consensus.host.<route>`), and the whole call's."""
     from sicelore_tpu_torch.pipeline import consensus
-    engine = poa_cuda.BatchedConsensusEngine
-    secs: dict[str, float] = {}
-    undo = [
-        timed_fn(secs, consensus, "LongreadParser", "bam_parse"),
-        timed_fn(secs, consensus, "MoleculeDataset", "molecule_grouping"),
-        timed_fn(secs, poa, "consensus_reads", "host_engine"),
-        timed_fn(secs, engine, "_build_bucket", "bucket_build"),
-        timed_fn(secs, engine, "_run_batch", "batches_total", sync=True),
-        timed_fn(secs, poa_cuda, "band_align", "kernel", sync=True),
-        timed_fn(secs, poa_cuda, "segment_votes", "votes", sync=True),
-        timed_fn(secs, poa_cuda, "assemble_votes", "assembly", sync=True),
-    ]
-    t = time.perf_counter()
+    from sicelore_tpu_torch.utils import trace
+    trace.enable()
     try:
         consensus.compute_consensus(bam, out_fastq, device="cuda")
+        snap = trace.snapshot()
     finally:
-        for u in undo:
-            u()
-    secs["total"] = time.perf_counter() - t
-    # within a batch: encode + upload before the kernel, decode after
-    secs["encode_upload_decode"] = secs["batches_total"] - sum(
-        secs.get(k, 0.0) for k in ("kernel", "votes", "assembly"))
-    secs["select_write"] = secs["total"] - sum(
-        secs.get(k, 0.0) for k in ("bam_parse", "molecule_grouping",
-                                   "host_engine", "bucket_build",
-                                   "batches_total"))
+        trace.disable()
+        trace.reset()
+    secs: dict[str, float] = {}
+    for sp in snap["spans"]:
+        keys = [sp["name"]]
+        if sp["name"] == "consensus.host":
+            keys.append(f"consensus.host.{sp['attrs']['route']}")
+        for k in keys:
+            secs[k] = secs.get(k, 0.0) + (sp["end"] - sp["start"]) / 1e9
     return {k: round(v, 3) for k, v in secs.items()}
 
 

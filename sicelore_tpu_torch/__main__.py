@@ -12,7 +12,7 @@ the same flags and defaults, plus `env`.
          [-a <refFlat>] [-f] [--illumina <table>] [--device cuda|cpu]
   python -m sicelore_tpu_torch computeconsensus -I <tagged BAM> -O <fastq>
          [--MAXREADS 20 --MINPS 3 --MAXPS 20 --refine --host-engine]
-         [--device cuda|cpu]
+         [--device cuda|cpu] [--trace <trace.json>]
   python -m sicelore_tpu_torch precompile [--nbc 8192 --full]
          [--device cuda|cpu]
   python -m sicelore_tpu_torch isoformmatrix|collapsemodel|snpmatrix|...
@@ -27,7 +27,9 @@ assignumis (the UMI distance matrices of large groups), computeconsensus
 every kernel). Every other command is host code and takes no `--device`.
 `run`'s consensus stage uses the host engine, as the reference package's
 `run` does. `env` reports the torch/CUDA build, the GPU, and whether nvcc,
-triton and the native host codecs are present.
+triton and the native host codecs are present. `computeconsensus --trace
+PATH` runs with the program's tracer on (`utils/trace.py`) and writes its
+spans, kernel launches and counters to PATH as Chrome trace-event JSON.
 """
 from __future__ import annotations
 
@@ -125,11 +127,17 @@ def _add_computeconsensus(sub):
                         "consensus (about twice the device time)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda: the CUDA kernel; cpu: plain torch bodies")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="write the run's trace to PATH as Chrome "
+                        "trace-event JSON (chrome://tracing, Perfetto): "
+                        "host spans and kernel launches on one clock, "
+                        "counters as C events")
     return p
 
 
 def cmd_computeconsensus(args) -> int:
     from sicelore_tpu_torch.pipeline.consensus import compute_consensus
+    from sicelore_tpu_torch.utils import trace
 
     engine = "host"
     if not args.host_engine:
@@ -140,10 +148,17 @@ def cmd_computeconsensus(args) -> int:
                                         device=args.device)
         if args.refine:
             engine = functools.partial(engine, refine=True)
-    stats = compute_consensus(args.INPUT, args.OUTPUT,
-                              maxreads=args.MAXREADS, minps=args.MINPS,
-                              maxps=args.MAXPS, engine=engine,
-                              log_json=str(args.OUTPUT) + ".log")
+    if args.trace:
+        trace.enable()
+    try:
+        stats = compute_consensus(args.INPUT, args.OUTPUT,
+                                  maxreads=args.MAXREADS, minps=args.MINPS,
+                                  maxps=args.MAXPS, engine=engine,
+                                  log_json=str(args.OUTPUT) + ".log")
+        if args.trace:
+            trace.dump(trace.snapshot(), args.trace)
+    finally:
+        trace.disable()
     print(f"computeconsensus done: {stats['written']}/{stats['molecules']} "
           f"molecules")
     return 0

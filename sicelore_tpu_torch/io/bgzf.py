@@ -16,6 +16,8 @@ import struct
 import zlib
 from pathlib import Path
 
+from sicelore_tpu_torch.utils import trace
+
 BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000")
 MAX_BLOCK = 65280  # uncompressed payload per block (samtools default)
@@ -26,7 +28,10 @@ class BGZFReader:
 
     When the native parallel codec (native/build/libbgzf.so via io.native)
     is available the whole stream is inflated up front with a thread
-    fan-out; otherwise blocks decode lazily in pure Python."""
+    fan-out; otherwise blocks decode lazily in pure Python. Each inflate
+    is a `bam.inflate` span of the program's tracer (the native one whole,
+    or one a zlib block), and the inflated bytes its counter of that
+    name, by `route`."""
 
     def __init__(self, path: str | Path, use_native: bool | None = None):
         self._fh = open(path, "rb")
@@ -48,11 +53,13 @@ class BGZFReader:
         if native.get_lib() is None:
             return
         raw = self._fh.read()
-        res = native.bgzf_decompress(raw, want_offsets=True)
+        with trace.span("bam.inflate", route="native"):
+            res = native.bgzf_decompress(raw, want_offsets=True)
         if res is None:
             self._fh.seek(0)
             return
         data, coff, uoff = res
+        trace.count("bam.inflate", len(data), route="native")
         self._native_data = data
         self._native_coff = coff
         self._native_uoff = uoff
@@ -86,7 +93,9 @@ class BGZFReader:
             raise ValueError("BGZF: missing BC subfield")
         cdata = self._fh.read(bsize + 1 - 12 - xlen - 8)
         crc, isize = struct.unpack("<II", self._fh.read(8))
-        self._block = zlib.decompress(cdata, -15)
+        with trace.span("bam.inflate", route="zlib"):
+            self._block = zlib.decompress(cdata, -15)
+        trace.count("bam.inflate", len(self._block), route="zlib")
         if len(self._block) != isize:
             raise ValueError("BGZF: ISIZE mismatch")
         self._pos = 0

@@ -12,7 +12,8 @@ edited source rebuilds and a stale library is never loaded. Every C entry
 point takes device pointers and the stream as `void*`, returns
 `cudaGetLastError()` after its launch, and the wrappers call it through
 `launch`, which makes the tensors' device current and raises when the
-result is not 0.
+result is not 0. While the program's tracer is on (`utils.trace`), `launch`
+also records each launch with its host instant and CUDA events around it.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from sicelore_tpu_torch.utils import trace
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -132,7 +135,12 @@ def launch(fn, what: str, device, *args) -> None:
     cuda:1 must not launch from a thread whose current device is cuda:0.
     Raises when the entry returns a non-zero cudaError."""
     with torch.cuda.device(device):
-        check(fn(*args, stream_handle(device)), what)
+        if trace.ON:
+            rec = trace.launch_begin(what, device)
+            check(fn(*args, stream_handle(device)), what)
+            trace.launch_end(rec)
+        else:
+            check(fn(*args, stream_handle(device)), what)
 
 
 def stream_handle(device) -> int:

@@ -41,7 +41,7 @@ import torch
 from sicelore_tpu_torch import device as _device
 from sicelore_tpu_torch.ops import _build, poa
 from sicelore_tpu_torch.parallel import shard
-from sicelore_tpu_torch.utils import dna
+from sicelore_tpu_torch.utils import dna, trace
 
 MATCH, MISMATCH, GAP = poa.MATCH, poa.MISMATCH, poa.GAP
 NEG = -(10**7)
@@ -359,42 +359,93 @@ class BatchedConsensusEngine:
         return results
 
     def _one_pass(self, molecules, minps, maxps, centers_map):
+        """One alignment pass. Each molecule first gets its route, then
+        the host engine takes each host route at once, and the rest go
+        through the buckets; results are stored by molecule, so the order
+        of the routes does not change them. Routes (the `consensus.molecules`
+        counter of the program's tracer, by `route`; `refine` in the second
+        pass): short (1-2 reads), long (a center over max_center_len), n (a
+        non-ACGT byte, when maxps <= 63), nopair (a bucket with no pair
+        left), overflow (an assembly longer than the device route's output
+        row) and device."""
         results: list = [None] * len(molecules)
         # maxps <= 63: band by bucket, N screen, device assembly;
         # above: band = self.band, no N screen, host float64 assembly
         bucketed = maxps <= 63
+        tag = {} if centers_map is None else {"refine": True}
+        host: dict[str, list[int]] = {r: [] for r in (
+            "short", "n", "long", "nopair", "overflow")}
         buckets: dict[int, list[int]] = defaultdict(list)
-        for mi, seqs in enumerate(molecules):
-            if centers_map is not None and mi not in centers_map:
-                continue
-            if len(seqs) <= 2:
-                results[mi] = poa.consensus_reads(seqs, minps, maxps)
-            else:
+        with trace.span("consensus.route", **tag):
+            for mi, seqs in enumerate(molecules):
+                if centers_map is not None and mi not in centers_map:
+                    continue
+                if len(seqs) <= 2:
+                    host["short"].append(mi)
+                    continue
                 c = (len(centers_map[mi]) if centers_map is not None
                      else max(len(s) for s in seqs))
-                if c > self.max_center_len or (
-                        bucketed and any(s.translate(None, _ACGT) for s in
-                                         seqs)):
-                    # N-containing molecules take the host engine, as do
-                    # centers beyond the largest bucket
-                    results[mi] = poa.consensus_reads(seqs, minps, maxps)
+                # centers beyond the largest bucket and N-containing
+                # molecules take the host engine
+                if c > self.max_center_len:
+                    host["long"].append(mi)
+                elif bucketed and any(s.translate(None, _ACGT) for s in seqs):
+                    host["n"].append(mi)
                 else:
                     buckets[max(256, 1 << (c - 1).bit_length())].append(mi)
+        for route in ("short", "n", "long"):
+            self._host(molecules, results, host[route], route, minps, maxps,
+                       tag)
+        batch = 0
         for Lc, idxs in buckets.items():
             W = w_for(Lc) if bucketed else self.band
-            built = self._build_bucket(molecules, idxs, Lc, W, centers_map)
-            info, centers, clens, reads, rlens, mol_ids = built
+            with trace.span("consensus.pack", Lc=Lc, W=W,
+                            molecules=len(idxs), **tag) as sp:
+                built = self._build_bucket(molecules, idxs, Lc, W,
+                                           centers_map)
+                info, centers, clens, reads, rlens, mol_ids = built
+                cuts = list(self._sub_batches(mol_ids, len(info)))
+                if trace.ON:
+                    sp.set(pairs=len(centers))
+                    offered = sum(R for _, _, R in info) - (
+                        0 if centers_map is not None else len(info))
+                    trace.count("consensus.pairs_dropped",
+                                offered - len(centers), **tag)
             if not centers:
-                for mi, cseq, R in info:
-                    results[mi] = poa.consensus_reads(molecules[mi], minps,
-                                                      maxps)
+                host["nopair"] += [mi for mi, _, _ in info]
                 continue
-            for m0, m1, p0, p1 in self._sub_batches(mol_ids, len(info)):
-                self._run_batch(molecules, results, info[m0:m1],
-                                reads[p0:p1], rlens[p0:p1],
-                                [m - m0 for m in mol_ids[p0:p1]], Lc, W,
-                                minps, maxps, bucketed)
+            for m0, m1, p0, p1 in cuts:
+                host["overflow"] += self._run_batch(
+                    molecules, results, info[m0:m1], reads[p0:p1],
+                    rlens[p0:p1], mol_ids[p0:p1], m0, Lc, W, minps, maxps,
+                    bucketed, batch, tag)
+                batch += 1
+        for route in ("nopair", "overflow"):
+            self._host(molecules, results, host[route], route, minps, maxps,
+                       tag)
+        if trace.ON:
+            for route, idxs in host.items():
+                trace.count("consensus.molecules", len(idxs), route=route,
+                            **tag)
+            trace.count("consensus.molecules", sum(map(len, buckets.values()))
+                        - len(host["nopair"]) - len(host["overflow"]),
+                        route="device", **tag)
         return results
+
+    @staticmethod
+    def _host(molecules, results, idxs, route, minps, maxps, tag):
+        """The host engine on the molecules `idxs` of one route: one
+        `consensus.host` span."""
+        if not idxs:
+            return
+        reads = 0
+        with trace.span("consensus.host", route=route, molecules=len(idxs),
+                        **tag) as sp:
+            for mi in idxs:
+                results[mi] = poa.consensus_reads(molecules[mi], minps,
+                                                  maxps)
+                reads += len(molecules[mi])
+            sp.set(reads=reads)
 
     def _build_bucket(self, molecules, idxs, Lc, W, centers_map=None):
         """Pack one bucket's pair batch.
@@ -444,46 +495,74 @@ class BatchedConsensusEngine:
             m0 = m1
 
     def _run_batch(self, molecules, results, info, reads, rlens, mol_ids,
-                   Lc, W, minps, maxps, bucketed):
-        """One sub-batch: upload, align and vote (on each shard of the
-        mesh, the votes summed), assemble, decode."""
+                   m0, Lc, W, minps, maxps, bucketed, batch, tag):
+        """One sub-batch (its pairs' molecule ids count from m0): pack,
+        upload, align and vote (on each shard of the mesh, the votes
+        summed), wait for the card, assemble, download, decode. Returns the
+        molecules whose assembly is longer than the device route's output
+        row, for the host engine. Its spans (`consensus.pack`, `.upload`,
+        `.device`, `.wait`, `.decode`) open one after another."""
         from sicelore_tpu_torch.parallel import consensus_step
         dev = self.device
-        P, M = len(reads), len(info)
-        r_arr = np.full((P, Lc + W), dna.PAD, np.int8)
-        for p, s in enumerate(reads):
-            r_arr[p, :len(s)] = dna.encode(s)
-        c_arr = np.full((M, Lc), dna.PAD, np.int8)
-        for m, (_, cseq, _) in enumerate(info):
-            c_arr[m, :len(cseq)] = dna.encode(cseq)
-        cl_arr = np.array([len(c) for _, c, _ in info], np.int32)
         devs = self.mesh or [dev]
-        c_dev = torch.from_numpy(c_arr).to(devs[0])
-        cl_dev = torch.from_numpy(cl_arr).to(devs[0])
+        P, M = len(reads), len(info)
+        with trace.span("consensus.pack", sub_batch=batch, pairs=P,
+                        molecules=M, **tag):
+            r_arr = np.full((P, Lc + W), dna.PAD, np.int8)
+            for p, s in enumerate(reads):
+                r_arr[p, :len(s)] = dna.encode(s)
+            c_arr = np.full((M, Lc), dna.PAD, np.int8)
+            for m, (_, cseq, _) in enumerate(info):
+                c_arr[m, :len(cseq)] = dna.encode(cseq)
+            cl_arr = np.array([len(c) for _, c, _ in info], np.int32)
+            rl_arr = np.asarray(rlens, np.int32)
+            mid_arr = np.asarray(mol_ids, np.int32) - np.int32(m0)
+        with trace.span("consensus.upload", sub_batch=batch, **tag):
+            c_dev = torch.from_numpy(c_arr).to(devs[0])
+            cl_dev = torch.from_numpy(cl_arr).to(devs[0])
+            trace.count("consensus.h2d_bytes", c_arr.nbytes + cl_arr.nbytes,
+                        **tag)
         cv, iv, pc = consensus_step.make_sharded_bucket_fn(devs, Lc, W)(
-            r_arr, np.asarray(rlens, np.int32),
-            np.asarray(mol_ids, np.int32), c_dev, cl_dev)
+            r_arr, rl_arr, mid_arr, c_dev, cl_dev)
         if not bucketed:
-            cv, iv, pc = cv.cpu().numpy(), iv.cpu().numpy(), pc.cpu().numpy()
+            with trace.span("consensus.wait", sub_batch=batch, **tag):
+                cv, iv, pc = (cv.cpu().numpy(), iv.cpu().numpy(),
+                              pc.cpu().numpy())
+                trace.count("consensus.d2h_bytes",
+                            cv.nbytes + iv.nbytes + pc.nbytes, **tag)
+            with trace.span("consensus.decode", sub_batch=batch, **tag):
+                for m, (mi, cseq, _) in enumerate(info):
+                    results[mi] = self._assemble(cseq, cv[m], iv[m],
+                                                 int(pc[m]), maxps)
+            return []
+        with trace.span("consensus.wait", sub_batch=batch, **tag):
+            # the alignment and the votes done: the assembly reads its
+            # largest vote count and its kept slots back from the card
+            if devs[0].type == "cuda":
+                torch.cuda.current_stream(devs[0]).synchronize()
+        with trace.span("consensus.device", sub_batch=batch, **tag):
+            codes, qv, out_len = assemble_votes(cv, iv, pc, c_dev, cl_dev,
+                                                maxps)
+        with trace.span("consensus.wait", sub_batch=batch, **tag):
+            codes, qv = codes.cpu().numpy(), qv.cpu().numpy()
+            out_len = out_len.cpu().numpy()
+            trace.count("consensus.d2h_bytes",
+                        codes.nbytes + qv.nbytes + out_len.nbytes, **tag)
+        with trace.span("consensus.decode", sub_batch=batch, **tag):
+            cons_all = _ACGT_NP[codes].tobytes()
+            qv_all = (qv + 33).astype(np.uint8).tobytes()
+            ends = np.cumsum(out_len)
+            starts = np.concatenate([[0], ends[:-1]])
+            out_cols = Lc + Lc // 8 + 16
+            overflow = []
             for m, (mi, cseq, _) in enumerate(info):
-                results[mi] = self._assemble(cseq, cv[m], iv[m], int(pc[m]),
-                                             maxps)
-            return
-        codes, qv, out_len = assemble_votes(cv, iv, pc, c_dev, cl_dev,
-                                            maxps)
-        cons_all = _ACGT_NP[codes.cpu().numpy()].tobytes()
-        qv_all = (qv.cpu().numpy() + 33).astype(np.uint8).tobytes()
-        ends = np.cumsum(out_len.cpu().numpy())
-        starts = np.concatenate([[0], ends[:-1]])
-        out_cols = Lc + Lc // 8 + 16
-        for m, (mi, cseq, _) in enumerate(info):
-            s, e = int(starts[m]), int(ends[m])
-            if e - s > out_cols:
-                # longer than the device route's output row: host engine
-                results[mi] = poa.consensus_reads(molecules[mi], minps,
-                                                  maxps)
-            else:
-                results[mi] = (cons_all[s:e], qv_all[s:e])
+                s, e = int(starts[m]), int(ends[m])
+                if e - s > out_cols:
+                    # longer than the device route's output row: host engine
+                    overflow.append(mi)
+                else:
+                    results[mi] = (cons_all[s:e], qv_all[s:e])
+        return overflow
 
     @staticmethod
     def _assemble(center: bytes, col_votes, ins_votes, n_pairs, maxps):

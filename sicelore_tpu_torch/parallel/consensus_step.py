@@ -21,6 +21,7 @@ import torch
 
 from sicelore_tpu_torch.ops import poa_cuda
 from sicelore_tpu_torch.parallel import shard
+from sicelore_tpu_torch.utils import trace
 
 
 def make_sharded_bucket_fn(mesh, Lc: int, W: int):
@@ -44,22 +45,26 @@ def make_sharded_bucket_fn(mesh, Lc: int, W: int):
             mids, M, -(-P // len(devices))))
 
         def votes(dev, m0, m1, p0, p1):
-            def up(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            mid = up(mids[p0:p1] - m0)
-            al, ins, feas = poa_cuda.band_align(
-                up(reads[p0:p1]), up(rlens[p0:p1]), mid,
-                centers[m0:m1].to(dev), clens[m0:m1].to(dev), Lc, W)
-            return poa_cuda.segment_votes(al, ins, feas, mid, m1 - m0)
+            with trace.span("consensus.upload"):
+                host = [np.ascontiguousarray(a) for a in (
+                    reads[p0:p1], rlens[p0:p1], mids[p0:p1] - m0)]
+                r, rl, mid = (torch.from_numpy(a).to(dev) for a in host)
+                c, cl = centers[m0:m1].to(dev), clens[m0:m1].to(dev)
+                trace.count("consensus.h2d_bytes",
+                            sum(a.nbytes for a in host))
+            with trace.span("consensus.device"):
+                al, ins, feas = poa_cuda.band_align(r, rl, mid, c, cl, Lc, W)
+                return poa_cuda.segment_votes(al, ins, feas, mid, m1 - m0)
 
         parts = shard.map_shards(devices, groups, votes)
         if len(parts) == 1:
             return parts[0]
-        tot = [torch.zeros((M,) + t.shape[1:], dtype=t.dtype, device=dev0)
-               for t in parts[0]]
-        for (m0, m1, _, _), part in zip(groups, parts):
-            for acc, t in zip(tot, part):
-                acc[m0:m1] += t.to(dev0)
+        with trace.span("consensus.device"):
+            tot = [torch.zeros((M,) + t.shape[1:], dtype=t.dtype,
+                               device=dev0) for t in parts[0]]
+            for (m0, m1, _, _), part in zip(groups, parts):
+                for acc, t in zip(tot, part):
+                    acc[m0:m1] += t.to(dev0)
         return tuple(tot)
 
     return fn

@@ -154,7 +154,8 @@ def _subparsers(adders):
 def test_cli_options_match_jax(cmd):
     """Each port command has the JAX command's option strings and defaults,
     plus --device (default cuda) where it reaches the card; the host-only
-    parseillumina and samview take no --device."""
+    parseillumina and samview take no --device; computeconsensus also takes
+    --trace (the program's tracer, off by default)."""
     j = _subparsers([j_main._add_scanfastq, j_main._add_assignumis,
                      j_main._add_computeconsensus,
                      j_main._add_simple_programs])[cmd]
@@ -166,6 +167,8 @@ def test_cli_options_match_jax(cmd):
         assert "--device" not in to
     else:
         assert to.pop("--device") == "cuda"
+    if cmd == "computeconsensus":
+        assert to.pop("--trace") is None
     assert to == jo
     pos = [a.dest for a in t._actions if not a.option_strings]
     assert pos == [a.dest for a in j._actions if not a.option_strings]

@@ -80,7 +80,8 @@ def test_same_subcommands():
 @pytest.mark.parametrize("cmd", COMMANDS)
 def test_subcommand_options_match_jax(cmd):
     """Option strings, defaults, choices, required; --device (cuda or cpu,
-    default cuda) only where the command reaches the card."""
+    default cuda) only where the command reaches the card, and --trace
+    (the program's tracer, off by default) on computeconsensus only."""
     j = _spec(_commands(_jax_parser())[cmd])
     t = _spec(_commands(t_main.build_parser())[cmd])
     dev = t.pop(("--device",), None)
@@ -88,6 +89,11 @@ def test_subcommand_options_match_jax(cmd):
         assert dev is not None and dev[:3] == ("cuda", ("cuda", "cpu"), False)
     else:
         assert dev is None
+    tr = t.pop(("--trace",), None)
+    if cmd == "computeconsensus":
+        assert tr is not None and tr[:3] == (None, None, False)
+    else:
+        assert tr is None
     assert t == j
 
 

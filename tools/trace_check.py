@@ -1,0 +1,242 @@
+"""Checks of the program's Step 4b tracer (`sicelore_tpu_torch/utils/trace.py`)
+on the card, from the root of a checkout:
+
+    python3 tools/trace_check.py agree --workload tenx3p_v3.consensus_wta \\
+        --seeds 11 12 --seconds 51
+    python3 tools/trace_check.py cost --seed 11 --runs 10
+
+(`--device cpu --molecules N` rehearses either on the CPU at a small size;
+its times are the CPU's.)
+
+`agree`: a `--trace 1` run of the benchmark's cell a seed, in process
+(`benchmark/harness/cell.run_cell`), with the program's snapshot that its
+metrics read: the program's `consensus.host` spans against the harness's
+host-engine hook, the engine's sibling spans against the harness's engine
+self (each also with the collector's full pauses inside the host spans
+set apart, which fall between the hook's intervals), the route counters against the molecules the generator made (after
+the MAXREADS selection), each host route's and engine span's ms per 1,000
+molecules, and where every band-kernel launch lies among the spans. One
+JSON line a run.
+
+`cost`: the wta cell's inputs through `compute_consensus` with the tracer
+off and on in turns (off first), after one warm-up call: each side's
+median and quartiles of the call's seconds, the spans and launch records a
+traced call makes, and whether both wrote the same bytes. One JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+ENGINE = ("consensus.route", "consensus.pack", "consensus.upload",
+          "consensus.device", "consensus.wait", "consensus.decode")
+
+
+def expected_routes(mols, maxreads: int, max_center_len: int = 2048) -> dict:
+    """Molecules of 3+ selected reads by the host route the engine's screen
+    gives them: `long` (a center over max_center_len) before `n`."""
+    out = {"long": 0, "n": 0, "deep": 0}
+    for reads, des in zip(mols.reads, mols.des):
+        sel = [reads[i] for i in sorted(range(len(reads)),
+                                        key=lambda i: des[i])[:maxreads]]
+        if len(sel) <= 2:
+            continue
+        out["deep"] += 1
+        if max(map(len, sel)) > max_center_len:
+            out["long"] += 1
+        elif any(s.translate(None, b"ACGTacgt") for s in sel):
+            out["n"] += 1
+    return out
+
+
+def quartiles(xs) -> list[float]:
+    q1, q2, q3 = statistics.quantiles(xs, n=4)
+    return [q1, q2, q3]
+
+
+def agree(args) -> None:
+    from benchmark.gen import molecules as gen
+    from benchmark.harness import cell
+    from benchmark.metrics import _program
+    from sicelore_tpu_torch.utils import trace
+    bench = cell.load_json(ROOT / "BENCHMARK.json")
+    over = {"mix": {"molecules": args.molecules}} if args.molecules else None
+    _, config, traffic, _ = cell.load_cell(bench, args.workload, over)
+    for seed in args.seeds:
+        r = cell.run_cell(args.workload, seed, args.seconds, True,
+                          args.device, bench=bench, overrides=over,
+                          log=lambda *a, **k: None)
+        snap = _program._taken[1]
+        m = {k: v["value"] for k, v in r["metrics"].items()}
+        calls = [s for s in snap["spans"] if s["name"] == "consensus.call"]
+        units = sum(s["attrs"]["molecules"] for s in calls)
+        per_k = {}
+        for s in snap["spans"]:
+            key = s["name"] + ("." + s["attrs"]["route"]
+                               if s["name"] == "consensus.host" else "")
+            per_k[key] = per_k.get(key, 0.0) + (s["end"] - s["start"]) / 1e6
+        per_k = {k: v * 1000 / units for k, v in sorted(per_k.items())}
+        host = sum(v for k, v in per_k.items()
+                   if k.startswith("consensus.host."))
+        engine = sum(per_k.get(k, 0.0) for k in ENGINE)
+        routes: dict = {}
+        for c in snap["counters"]:
+            if c["name"] == "consensus.molecules":
+                routes[c["attrs"]["route"]] = routes.get(
+                    c["attrs"]["route"], 0) + c["value"]
+        mols = gen.make_molecules(np.random.default_rng(seed),
+                                  traffic["mix"])
+        want = expected_routes(mols, config["consensus"]["maxreads"])
+        by_id = {s["id"]: s for s in snap["spans"]}
+        waits = sorted((s for s in snap["spans"]
+                        if s["name"] == "consensus.wait"),
+                       key=lambda s: s["start"])
+        bad = 0
+        for x in snap["launches"]:
+            call = next(c for c in calls if c["call"] ==
+                        by_id[x["span"]]["call"])
+            wait = next(w for w in waits if w["start"] >= x["enqueue"])
+            bad += not (x["enqueue"] <= x["start"] <= x["end"] <= wait["end"]
+                        and call["start"] <= x["enqueue"]
+                        and x["end"] <= call["end"])
+        # the collector's full pauses (`gc` spans) inside each span
+        gc_ms: dict = {}
+        by_key = {s["id"]: s["name"] + ("." + s["attrs"]["route"]
+                                        if s["name"] == "consensus.host"
+                                        else "") for s in snap["spans"]}
+        for p in snap["spans"]:
+            if p["name"] == "gc" and p["parent"]:
+                k = by_key[p["parent"]]
+                gc_ms[k] = gc_ms.get(k, 0.0) + (p["end"] - p["start"]) \
+                    / 1e6 * 1000 / units
+        own = trace.self_ns(snap["spans"])
+        host_self = sum(own[s["id"]] for s in snap["spans"]
+                        if s["name"] == "consensus.host") / 1e6 * 1000 / units
+        gc_host = host - host_self
+        gc_counts = {c["attrs"]["generation"]: c["value"]
+                     for c in snap["counters"] if c["name"] == "gc.ns"}
+        t_first = min(x["enqueue"] for x in snap["launches"]) \
+            if snap["launches"] else 0
+        detail = []
+        for x in snap["launches"]:
+            wait = next(w for w in waits if w["start"] >= x["enqueue"])
+            detail.append([round((x["enqueue"] - t_first) / 1e9, 3),
+                           (x["start"] - x["enqueue"]) / 1e3,
+                           (x["end"] - x["start"]) / 1e3,
+                           (wait["end"] - x["end"]) / 1e3])
+        print(json.dumps({
+            "workload": args.workload, "seed": seed,
+            "correct": r["correct"], "calls": len(calls), "units": units,
+            "host_spans_ms_per_kumi": host,
+            "host_engine_ms_per_kumi": m.get(
+                "consensus.host_engine_ms_per_kumi"),
+            "host_ratio": host / m["consensus.host_engine_ms_per_kumi"],
+            "engine_spans_ms_per_kumi": engine,
+            "engine_self_ms_per_kumi": m.get(
+                "consensus.engine_self_ms_per_kumi"),
+            "engine_ratio": engine / m["consensus.engine_self_ms_per_kumi"],
+            "routes_per_call": {k: v / len(calls) for k, v in
+                                sorted(routes.items())},
+            "generator_per_call": want,
+            "launches": len(snap["launches"]), "launches_outside": bad,
+            "spans_per_call": len(snap["spans"]) / len(calls),
+            "span_ms_per_kumi": per_k, "metrics": m,
+            "host_less_gc_ratio": host_self
+            / m["consensus.host_engine_ms_per_kumi"],
+            "engine_and_host_gc_ratio": (engine + gc_host)
+            / m["consensus.engine_self_ms_per_kumi"],
+            "gc_full_ms_per_kumi_by_parent": gc_ms,
+            "gc_ms_per_kumi_by_generation": {
+                g: ns / 1e6 * 1000 / units for g, ns in gc_counts.items()},
+            "clocks": snap["clocks"],
+            "launch_s_startlag_us_dur_us_waitmargin_us": detail,
+            "device": r["device"]}), flush=True)
+
+
+def cost(args) -> None:
+    import torch
+
+    from benchmark.gen import molecules as gen
+    from benchmark.harness import cell
+    from sicelore_tpu_torch.pipeline.consensus import compute_consensus
+    from sicelore_tpu_torch.utils import trace
+    bench = cell.load_json(ROOT / "BENCHMARK.json")
+    over = {"mix": {"molecules": args.molecules}} if args.molecules else None
+    _, config, traffic, _ = cell.load_cell(bench, "tenx3p_v3.consensus_wta",
+                                           over)
+    c = config["consensus"]
+    cuda = args.device == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        mols = gen.make_molecules(np.random.default_rng(args.seed),
+                                  traffic["mix"])
+        gen.write_molecules(tmp / "in.bam", mols)
+
+        def one(out, traced):
+            if traced:
+                trace.enable()
+            t = time.perf_counter()
+            try:
+                compute_consensus(tmp / "in.bam", out,
+                                  maxreads=c["maxreads"], minps=c["minps"],
+                                  maxps=c["maxps"], device=args.device,
+                                  log_json=str(out) + ".log")
+                if cuda:
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                snap = trace.snapshot() if traced else None
+            finally:
+                trace.disable()
+                trace.reset()
+            return dt, snap
+
+        one(tmp / "warm.fastq", False)
+        secs = {False: [], True: []}
+        made = None
+        for i in range(2 * args.runs):
+            traced = bool(i % 2)
+            dt, snap = one(tmp / f"{int(traced)}.fastq", traced)
+            secs[traced].append(dt)
+            made = snap or made
+        same = all((tmp / f"0{x}").read_bytes() == (tmp / f"1{x}").read_bytes()
+                   for x in (".fastq", ".fastq.log"))
+    off, on = quartiles(secs[False]), quartiles(secs[True])
+    print(json.dumps({
+        "off_s": secs[False], "on_s": secs[True], "off_quartiles": off,
+        "on_quartiles": on, "on_cost_pct": 100 * (on[1] / off[1] - 1),
+        "spans_per_call": len(made["spans"]),
+        "launch_records_per_call": len(made["launches"]),
+        "counters": len(made["counters"]), "same_bytes": same,
+        "device": torch.cuda.get_device_name(0) if cuda else "cpu"}),
+        flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    a = sub.add_parser("agree")
+    a.add_argument("--workload", required=True)
+    a.add_argument("--seeds", type=int, nargs="+", required=True)
+    a.add_argument("--seconds", type=float, default=51)
+    c = sub.add_parser("cost")
+    c.add_argument("--seed", type=int, required=True)
+    c.add_argument("--runs", type=int, default=10)
+    for p in (a, c):
+        p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+        p.add_argument("--molecules", type=int, default=None)
+    args = ap.parse_args(argv)
+    {"agree": agree, "cost": cost}[args.cmd](args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path[0] = str(ROOT)
+    sys.exit(main())
