@@ -387,6 +387,11 @@ MYERS_OPS = 18
 PAIRWISE_COLUMN_OPS = 16    # a global Myers column that keeps no score
 PAIRWISE_PAIR_OPS = 4       # its distance: two popc and two adds a pair
 BAND_CELL_OPS = 13
+# a band cell of the host engine's alignment (csrc/hostnw.cu): the byte
+# compare and its score select, the diagonal and up adds, their maximum,
+# the tilt, the prefix maximum, the untilt and the final maximum
+HOSTNW_CELL_OPS = 9
+HOSTNW_PLAIN_CALLS = 3      # kernel vs plain calls (the plain walk is slow)
 TILE_WORD_OPS = 210         # a 32-column word of the tile detection, k = 15
 EDGE_WORD_OPS = 103         # a 32-column word of an edge run scan, k = 15
 EDGE_RUN_BITSLICE_OPS = 29  # a column of the bit-sliced longest run
@@ -2094,13 +2099,14 @@ def chain_truth(aligned_bam, tagged_bam, genes):
 
 
 def path_counters():
-    """{name: function} of every launch counter: the nine kernel wrappers,
+    """{name: function} of every launch counter: the ten kernel wrappers,
     the composed edge body, the plain bodies (keys starting "plain_"), and
     myers_global_pairwise, the torch body the pairwise kernel's plain
     version calls once a pattern length."""
-    from sicelore_tpu_torch.ops import bcsearch, editdist, poa_cuda
+    from sicelore_tpu_torch.ops import bcsearch, editdist, hostnw_cuda
     from sicelore_tpu_torch.ops import edgescan as eg
     from sicelore_tpu_torch.ops import encode_cuda as enc
+    from sicelore_tpu_torch.ops import poa_cuda
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
     return {"encode_two_half": enc.encode_two_half_dev,
@@ -2108,6 +2114,7 @@ def path_counters():
             "edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
             "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan,
             "win1": editdist.myers_win1, "bandalign": poa_cuda.band_align,
+            "hostnw": hostnw_cuda.host_nw,
             "pairwise": editdist.myers_global_group,
             "edge_composed": eg.edge_scan2_composed,
             "myers_global_pairwise": editdist.myers_global_pairwise,
@@ -2119,6 +2126,7 @@ def path_counters():
             "plain_tilescan": ts.tile_scan_plain,
             "plain_win1": editdist.myers_win1_plain,
             "plain_bandalign": poa_cuda.band_align_plain,
+            "plain_hostnw": hostnw_cuda.host_nw_plain,
             "plain_pairwise": editdist.myers_global_group_plain,
             "plain_consensus_votes": poa_cuda.consensus_votes_plain}
 
@@ -2513,6 +2521,263 @@ def gap_pairs(rng, Lc, n):
     return pairs
 
 
+HOSTNW_CASES = ("equal", "short_read", "tiny", "n_lower", "all_n", "repeats",
+                "band_edge", "longer_read", "empty")
+
+
+def hostnw_pairs(name: str, seed: int = SEED + 1_100) -> list:
+    """(center, read) pairs of the host engine's alignment (csrc/hostnw.cu)
+    by kind, centers of at most 300 nt: equal lengths; reads of at most half
+    the center; reads of 1-3 bases; N and lower-case bytes; all-N reads;
+    tandem repeats and homopolymers, whose tied scores test the move order;
+    rotations and long indels whose paths run along the band's edge (the
+    walk reads cells outside the windows there); reads longer than the
+    center; empty centers and reads (the host's early returns)."""
+    import numpy as np
+
+    from sicelore_tpu_torch.utils import synth
+    rng = np.random.default_rng([seed, HOSTNW_CASES.index(name)])
+
+    def rand(n, alphabet=b"ACGT"):
+        return np.frombuffer(alphabet, np.uint8)[
+            rng.integers(0, len(alphabet), n)].tobytes()
+
+    def noisy(s, rate=0.04):
+        return synth.mutate_np(rng, s, rate)
+
+    if name == "equal":
+        out = []
+        for n in (40, 120, 250, 300):
+            a = rand(n)
+            b = bytearray(noisy(a, 0.03)[:n])
+            b += rand(n - len(b))
+            out += [(a, bytes(b)), (a, a)]
+        return out
+    if name == "short_read":
+        out = []
+        for n in (80, 200, 300):
+            a = rand(n)
+            s = int(rng.integers(0, n // 2))
+            out += [(a, noisy(a[s:s + n // 2 - 3])), (a, rand(n // 3)),
+                    (a, noisy(a[: n // 5])), (a, noisy(a[-n // 4:]))]
+        return out
+    if name == "tiny":
+        a = rand(200)
+        return ([(a, rand(k)) for k in (1, 2, 3)]
+                + [(a[:k], rand(j)) for k in (1, 2, 3) for j in (1, 2, 3)]
+                + [(a, a[100:101]), (a, a[:3]), (a, a[-2:])])
+    if name == "n_lower":
+        out = []
+        for n in (90, 260):
+            a = bytearray(rand(n, b"ACGTN"))
+            b = bytearray(noisy(bytes(a).replace(b"N", b"A")))
+            for x in rng.integers(0, len(b), 6):
+                b[x] = ord("N")
+            low = bytes(b).lower()
+            out += [(bytes(a), bytes(b)), (bytes(a), low),
+                    (bytes(a).lower(), bytes(b)), (rand(n, b"ACGTacgtN"),
+                                                   rand(n - 7, b"ACGTacgtN"))]
+        return out
+    if name == "all_n":
+        a = rand(220)
+        return [(a, b"N" * 200), (b"N" * 150, b"N" * 140), (b"N" * 60, a[:60]),
+                (a, b"N" * 3), (b"N" * 300, b"N" * 300)]
+    if name == "repeats":
+        return [(b"AC" * 60, b"AC" * 45), (b"AC" * 45 + b"G", b"AC" * 60),
+                (b"A" * 200, b"A" * 150), (b"A" * 150, b"A" * 151),
+                (b"ACG" * 80, b"ACG" * 70 + b"AC"), (b"AAAT" * 50,
+                                                      b"AAT" * 60),
+                (b"AC" * 100, b"CA" * 100), (b"T" * 90 + b"A" * 90,
+                                              b"A" * 90 + b"T" * 90)]
+    if name == "band_edge":
+        out = []
+        for n in (200, 300):
+            x, y = rand(n // 2), rand(n // 2)
+            out += [(x + y, y + x), (x + y, noisy(y) + noisy(x)),
+                    (x + y, y + rand(n // 2)), (x + rand(90) + y, x + y),
+                    (x + y, x + rand(90) + y)]
+        return out
+    if name == "longer_read":
+        out = []
+        for n, m in ((60, 250), (150, 300), (30, 200), (5, 90)):
+            a = rand(n)
+            out += [(a, noisy(a) + rand(m - n)), (a, rand(m))]
+        return out
+    if name == "empty":
+        return [(b"", b""), (b"", b"ACG"), (b"ACGT", b""), (rand(250), b""),
+                (b"", rand(40))]
+    raise ValueError(f"no host-alignment case {name!r}")
+
+
+def hostnw_packed(pairs):
+    """The pairs' bytes in one buffer and their offsets and lengths, as
+    `hostnw_cuda.align_pairs` takes them: (seq, a_off, la, b_off, lb)."""
+    import numpy as np
+    seq, a_off, b_off = bytearray(), [], []
+    for a, b in pairs:
+        a_off.append(len(seq))
+        seq += a
+        b_off.append(len(seq))
+        seq += b
+    return (np.frombuffer(seq, np.uint8), a_off, [len(a) for a, _ in pairs],
+            b_off, [len(b) for _, b in pairs])
+
+
+def hostnw_aligned(a: bytes, b: bytes, moves) -> tuple[bytes, bytes]:
+    """The aligned strings of a pair's moves (stored from the end), as
+    `poa.nw_align_banded` returns them."""
+    import numpy as np
+    ra, rb = bytearray(), bytearray()
+    i = j = 0
+    for m in np.asarray(moves)[::-1]:
+        ra.append(a[i] if m != 2 else 45)
+        rb.append(b[j] if m != 1 else 45)
+        i += m != 2
+        j += m != 1
+    if (i, j) != (len(a), len(b)):
+        raise ValueError(f"moves end at ({i}, {j}), not ({len(a)}, {len(b)})")
+    return bytes(ra), bytes(rb)
+
+
+def host_molecules(rng, kind: str) -> list:
+    """Molecules the batched engine leaves to the host engine, in the
+    benchmark's cells' make-up: `wta`: 25 of 3-12 reads of 400-899 nt at
+    3% with an N in one read and four of 3-12 reads of 2,100-2,250 nt;
+    `deep`: 20 of 13-20 reads with an N and four long ones of 13-20 reads;
+    both with 40 molecules of one or two reads."""
+    from sicelore_tpu_torch.utils import synth
+    deep = kind == "deep"
+    mols = []
+    for i in range(29 if not deep else 24):
+        depth = int(rng.integers(13, 21) if deep else rng.integers(3, 13))
+        long = i >= (25 if not deep else 20)
+        length = int(rng.integers(2_100, 2_251) if long
+                     else rng.integers(400, 900))
+        reads = synth.molecule_set(rng, 1, depth, 0.03, length)[0][0]
+        if not long:
+            r = int(rng.integers(0, depth))
+            s = bytearray(reads[r])
+            s[int(rng.integers(0, len(s)))] = ord("N")
+            reads[r] = bytes(s)
+        mols.append(reads)
+    for i in range(40):
+        mols += synth.molecule_set(rng, 1, 1 + i % 2, 0.03, 500)[0]
+    return mols
+
+
+def hostnw_star_pairs(mols) -> list:
+    """The (center, read) pairs `hostnw_cuda.CenterStar` aligns for the
+    molecules of three or more reads: each one's longest read (the first of
+    equal length) against every other."""
+    out = []
+    for m in mols:
+        if len(m) > 2:
+            c = max(range(len(m)), key=lambda i: len(m[i]))
+            out += [(m[c], s) for r, s in enumerate(m) if r != c]
+    return out
+
+
+def hostnw_band_cells(la, lb) -> int:
+    """The cells of every pair's row windows (the host's band and
+    rounding)."""
+    import numpy as np
+    total = 0
+    for a, b in zip(np.asarray(la).tolist(), np.asarray(lb).tolist()):
+        if a and b:
+            band = max(32, abs(a - b) + max(a, b) // 10)
+            c = np.rint(np.arange(1, a + 1) * (b / a)).astype(np.int64)
+            w = np.minimum(b, c + band) - np.maximum(1, c - band) + 1
+            total += int(np.maximum(w, 0).sum())
+    return total
+
+
+def hostnw_phase(dev, int32_hz) -> dict:
+    """csrc/hostnw.cu against its plain version on the card, move for
+    move, at the pair sets of a wta- and a deep-like Step 4b call
+    (`host_molecules`), with variants of fresh content (one base in a
+    thousand replaced); the wrapper's ms (CUDA events around a call, the
+    median of TIMED_CALLS), its device_ms and burst_ms; the bound: the band
+    cells x HOSTNW_CELL_OPS int32 operations or the bytes read and written
+    once, the score rows' scratch bytes beside it. `hostnw_route`: host ms
+    of the whole path a call takes for those molecules (`CenterStar`, then
+    `poa.consensus_from_msa` a molecule) against `poa.consensus_reads` on
+    them, and the molecules whose answers differ. Returns {result key:
+    entry}."""
+    import numpy as np
+    import torch
+
+    from sicelore_tpu_torch.ops import hostnw_cuda as hn
+    from sicelore_tpu_torch.ops import poa
+    res, route = {}, {"mismatches": 0}
+    for kind in ("wta", "deep"):
+        rng = np.random.default_rng([SEED + 1_200, len(kind)])
+        mols = host_molecules(rng, kind)
+        seq, a_off, la, b_off, lb = hostnw_packed(hostnw_star_pairs(mols))
+        table = hn.pair_table(a_off, la, b_off, lb)
+        table_d = torch.from_numpy(table).to(dev)
+        seq_d = torch.from_numpy(seq.copy()).to(dev)
+        acgt = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=dev)
+
+        def variant():
+            v = seq_d.clone()
+            at = torch.from_numpy(rng.integers(0, len(seq), len(seq) // 1000))
+            v[at.to(dev)] = acgt[torch.from_numpy(
+                rng.integers(0, 4, len(at))).to(dev)]
+            return v
+
+        def kern(v):
+            return hn.host_nw(v, table_d, table)
+
+        # a pair's bytes past its n_moves are not written: zero them on
+        # both sides before the comparison
+        lens = table[:, 1] + table[:, 3]
+        pid = torch.from_numpy(np.repeat(np.arange(len(table)), lens)).to(dev)
+        rel = torch.from_numpy(np.arange(int(lens.sum()))
+                               - np.repeat(table[:, 5], lens)).to(dev)
+
+        def written(out):
+            mv, n = out
+            return torch.where(rel < n.long()[pid], mv, 0), n
+
+        vars_ = [seq_d] + [variant() for _ in range(TIMED_CALLS)]
+        key = f"hostnw_{kind}"
+        res[key] = compare(
+            key, lambda v: written(kern(v)),
+            lambda v: written(hn.host_nw_plain(v, table_d, table)),
+            vars_[:HOSTNW_PLAIN_CALLS])
+        res[key]["ms"] = timed(kern, vars_[1:], torch.cuda.synchronize)[0]
+        cells = hostnw_band_cells(table[:, 1], table[:, 3])
+        res[key].update(bound(
+            seq.nbytes + table.nbytes + int((table[:, 1] + table[:, 3]).sum())
+            + 4 * len(table), cells * HOSTNW_CELL_OPS, int32_hz))
+        res[key].update({
+            "pairs": len(table), "band_cells": cells,
+            "center_lengths": [int(table[:, 1].min()),
+                               int(table[:, 1].max())],
+            "scratch_bytes": 4 * int((table[:, 1] * hn.strides(
+                table[:, 1], table[:, 3])).sum()),
+            "device_ms": device_ms(kern, vars_[1:]),
+            "burst_ms": burst_ms(kern, vars_[1:])})
+        host = [m for m in mols if len(m) > 2]
+        ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            star = hn.CenterStar(host, dev)
+            got = [poa.consensus_from_msa(star.rows(m), 20)
+                   for m in range(len(host))]
+            ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        want = [poa.consensus_reads(m, 3, 20) for m in host]
+        route[f"host_engine_ms_{kind}"] = (time.perf_counter() - t) * 1e3
+        route[f"route_ms_{kind}"] = sorted(ms)[1]
+        route[f"molecules_{kind}"] = len(host)
+        route["mismatches"] += sum(g != w for g, w in zip(got, want))
+        del seq_d, table_d, vars_, pid, rel
+        torch.cuda.empty_cache()
+    res["hostnw_route"] = route
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2555,7 +2820,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     from sicelore_tpu_torch.ops import _build, bcsearch, editdist
     from sicelore_tpu_torch.ops import edgescan as eg
     from sicelore_tpu_torch.ops import encode_cuda as enc
-    from sicelore_tpu_torch.ops import poa_cuda, scan
+    from sicelore_tpu_torch.ops import hostnw_cuda, poa_cuda, scan
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
     from sicelore_tpu_torch.pipeline.consensus import compute_consensus
@@ -3054,6 +3319,8 @@ def _run(pool, wl, cells, work, dev) -> int:
     # timing group (256 UMIs of 12 nt and 32 of 16 nt), one of mixed
     # lengths with N, an empty and a 33-nt UMI (host rows), one of 3,000
     results.update(pairwise_phase(dev, int32_hz))
+    # the host engine's alignment at a wta- and a deep-like call's pairs
+    results.update(hostnw_phase(dev, int32_hz))
     # pairs the regrouped kernel could get wrong: P not a multiple of the
     # pairs a warp holds, infeasible pairs, paths along the band's edge,
     # empty reads, a center of length 0
@@ -3328,7 +3595,8 @@ def _run(pool, wl, cells, work, dev) -> int:
     keys = write_bam(work / "cons.bam", mols, rng, "m")
     gen_s = time.time() - t0
     cons_counters = (poa_cuda.band_align, poa_cuda.band_align_plain,
-                     poa_cuda.consensus_votes_plain)
+                     poa_cuda.consensus_votes_plain, hostnw_cuda.host_nw,
+                     hostnw_cuda.host_nw_plain)
     for c in cons_counters:
         c.launches = 0
     t_run = time.time()
@@ -3338,9 +3606,11 @@ def _run(pool, wl, cells, work, dev) -> int:
     torch.cuda.synchronize()
     cons_s = time.time() - t_run
     launches["bandalign"] = poa_cuda.band_align.launches
+    launches["hostnw"] = hostnw_cuda.host_nw.launches
     cons_plain = {"band_align_plain": poa_cuda.band_align_plain.launches,
                   "consensus_votes_plain":
-                      poa_cuda.consensus_votes_plain.launches}
+                      poa_cuda.consensus_votes_plain.launches,
+                  "host_nw_plain": hostnw_cuda.host_nw_plain.launches}
     recs = read_fastq_records(work / "cons_cuda.fastq")
     multi = [r for r in recs if len(mols[keys[r[0].rsplit("-", 1)[0]]]) > 2
              and len(truths[keys[r[0].rsplit("-", 1)[0]]]) <= 2048]
@@ -3356,12 +3626,15 @@ def _run(pool, wl, cells, work, dev) -> int:
           "written": cstats["written"], "records": cstats["total_records"],
           "multi_read": len(multi), "run_s": round(cons_s, 3),
           "umis_per_s": round(N_MOLECULES / cons_s, 1),
-          "launches": {"bandalign": launches["bandalign"]},
+          "launches": {"bandalign": launches["bandalign"],
+                       "hostnw": launches["hostnw"]},
           "plain_launches": cons_plain, "worst_truth_distance": worst,
           "data_s": round(gen_s, 2), "s": round(time.time() - t0, 2)})
-    if launches["bandalign"] < 1 or any(cons_plain.values()):
-        raise SystemExit(f"consensus launches {launches['bandalign']}, "
-                         f"plain {cons_plain}")
+    if (launches["bandalign"] < 1 or launches["hostnw"] < 1
+            or any(cons_plain.values())):
+        raise SystemExit(f"consensus launches {launches['bandalign']} "
+                         f"bandalign, {launches['hostnw']} hostnw, plain "
+                         f"{cons_plain}")
     if (cstats["molecules"] != N_MOLECULES or cstats["written"] != N_MOLECULES
             or len(recs) != N_MOLECULES or n_far):
         raise SystemExit(f"consensus: {cstats}, {n_far} sampled consensuses "
@@ -3422,8 +3695,10 @@ def _run(pool, wl, cells, work, dev) -> int:
         torch.cuda.synchronize()
         cons_mesh_s = time.time() - t_run
         launches_m["bandalign"] = poa_cuda.band_align.launches
+        launches_m["hostnw"] = hostnw_cuda.host_nw.launches
         plain_m["bandalign"] = (poa_cuda.band_align_plain.launches
                                 + poa_cuda.consensus_votes_plain.launches)
+        plain_m["hostnw"] = hostnw_cuda.host_nw_plain.launches
     mesh_files = output_files(work / "out_mesh", skip=())
     one_files = output_files(work / "out_cuda", skip=())
     scan_differ = sorted(k for k in set(mesh_files) | set(one_files)
@@ -3712,7 +3987,8 @@ def _run(pool, wl, cells, work, dev) -> int:
           "s": round(time.time() - t0, 2)})
     if pre.returncode or sorted(pre_ms) != sorted(
             ("encode_two_half", "encode_composite", "edgescan", "bcsweep",
-             "tilefeed", "tilescan", "win1", "bandalign", "pairwise")) or \
+             "tilefeed", "tilescan", "win1", "bandalign", "hostnw",
+             "pairwise")) or \
             min(pre_ms.values()) <= 0:
         raise SystemExit(f"precompile: rc {pre.returncode}, {pre_ms}")
 
@@ -3741,6 +4017,10 @@ def _run(pool, wl, cells, work, dev) -> int:
                          "bandalign_512_32"),
            "win1": ("sicelore_tpu_torch/csrc/win1.cu",
                     "sicelore_tpu/ops/editdist.py:265", "win1"),
+           # not a Pallas kernel: the host engine's alignment, which the
+           # JAX package runs on the host
+           "hostnw": ("sicelore_tpu_torch/csrc/hostnw.cu",
+                      "sicelore_tpu/ops/poa.py:33", "hostnw_wta"),
            # not a Pallas kernel: the jitted scan the JAX route runs
            "pairwise": ("sicelore_tpu_torch/csrc/pairwise.cu",
                         "sicelore_tpu/ops/editdist.py:210",
@@ -3930,6 +4210,21 @@ def _run(pool, wl, cells, work, dev) -> int:
             entry["max_abs_err"] = max(
                 entry["max_abs_err"],
                 *(results[f"pairwise_{g}"]["max_abs_err"] for g in edge))
+        if name == "hostnw":
+            # launches: the consensus run's (routes n and long, one a
+            # call); the deep-like pair set under *_deep keys; the route
+            # against the host engine
+            entry.update({"device_ms": r["device_ms"],
+                          "burst_ms": r["burst_ms"], "pairs": r["pairs"],
+                          "band_cells": r["band_cells"],
+                          "scratch_bytes": r["scratch_bytes"],
+                          "route": results["hostnw_route"]})
+            o = results["hostnw_deep"]
+            entry.update({f"{k}_deep": o[k] for k in (
+                "ms", "device_ms", "burst_ms", "plain_ms", "bound_ms",
+                "pairs", "band_cells", "scratch_bytes")})
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       o["max_abs_err"])
         if name == "win1":
             entry.update({"windows": r["windows"], "columns": r["columns"],
                           "device_ms": r["device_ms"],

@@ -27,9 +27,12 @@ contract per pair p (center = centers_mol[mids[p]]):
 The routing of molecules is that of the JAX engine's production path and is
 part of the result: 1- and 2-read molecules, centers over `max_center_len`,
 molecules with a non-ACGT byte (when maxps <= 63), buckets with no surviving
-pair and assemblies longer than Lc + Lc/8 + 16 go to the host engine
-`ops.poa.consensus_reads`; maxps > 63 runs band W = `band` with the host
-float64 assembly.
+pair and assemblies longer than Lc + Lc/8 + 16 get the host engine's answer
+(`ops.poa.consensus_reads`); maxps > 63 runs band W = `band` with the host
+float64 assembly. The 1- and 2-read molecules call the host engine; for the
+rest its pairwise alignments run on the engine's device
+(`ops.hostnw_cuda`: csrc/hostnw.cu on the card) and its merge and majority
+on the host, with the same bytes.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from sicelore_tpu_torch import device as _device
-from sicelore_tpu_torch.ops import _build, poa
+from sicelore_tpu_torch.ops import _build, hostnw_cuda, poa
 from sicelore_tpu_torch.parallel import shard
 from sicelore_tpu_torch.utils import dna, trace
 
@@ -360,14 +363,17 @@ class BatchedConsensusEngine:
 
     def _one_pass(self, molecules, minps, maxps, centers_map):
         """One alignment pass. Each molecule first gets its route, then
-        the host engine takes each host route at once, and the rest go
-        through the buckets; results are stored by molecule, so the order
-        of the routes does not change them. Routes (the `consensus.molecules`
-        counter of the program's tracer, by `route`; `refine` in the second
-        pass): short (1-2 reads), long (a center over max_center_len), n (a
-        non-ACGT byte, when maxps <= 63), nopair (a bucket with no pair
-        left), overflow (an assembly longer than the device route's output
-        row) and device."""
+        the host engine's answer is made for each host route at once (the
+        short route by the host engine itself, routes n and long through
+        one launch of the host engine's alignment, `_host_aligned`), and
+        the rest go through the buckets (their nopair and overflow
+        molecules through one more such launch); results are stored by
+        molecule, so the order of the routes does not change them. Routes
+        (the `consensus.molecules` counter of the program's tracer, by
+        `route`; `refine` in the second pass): short (1-2 reads), long (a
+        center over max_center_len), n (a non-ACGT byte, when maxps <= 63),
+        nopair (a bucket with no pair left), overflow (an assembly longer
+        than the device route's output row) and device."""
         results: list = [None] * len(molecules)
         # maxps <= 63: band by bucket, N screen, device assembly;
         # above: band = self.band, no N screen, host float64 assembly
@@ -393,9 +399,10 @@ class BatchedConsensusEngine:
                     host["n"].append(mi)
                 else:
                     buckets[max(256, 1 << (c - 1).bit_length())].append(mi)
-        for route in ("short", "n", "long"):
-            self._host(molecules, results, host[route], route, minps, maxps,
-                       tag)
+        self._host(molecules, results, host["short"], "short", minps, maxps,
+                   tag)
+        self._host_aligned(molecules, results, host, ("n", "long"), maxps,
+                           tag)
         batch = 0
         for Lc, idxs in buckets.items():
             W = w_for(Lc) if bucketed else self.band
@@ -420,9 +427,8 @@ class BatchedConsensusEngine:
                     rlens[p0:p1], mol_ids[p0:p1], m0, Lc, W, minps, maxps,
                     bucketed, batch, tag)
                 batch += 1
-        for route in ("nopair", "overflow"):
-            self._host(molecules, results, host[route], route, minps, maxps,
-                       tag)
+        self._host_aligned(molecules, results, host, ("nopair", "overflow"),
+                           maxps, tag)
         if trace.ON:
             for route, idxs in host.items():
                 trace.count("consensus.molecules", len(idxs), route=route,
@@ -434,8 +440,8 @@ class BatchedConsensusEngine:
 
     @staticmethod
     def _host(molecules, results, idxs, route, minps, maxps, tag):
-        """The host engine on the molecules `idxs` of one route: one
-        `consensus.host` span."""
+        """The host engine on the molecules `idxs` of one route (the 1- and
+        2-read molecules): one `consensus.host` span."""
         if not idxs:
             return
         reads = 0
@@ -446,6 +452,38 @@ class BatchedConsensusEngine:
                                                   maxps)
                 reads += len(molecules[mi])
             sp.set(reads=reads)
+
+    def _host_aligned(self, molecules, results, host, routes, maxps, tag):
+        """The host engine's answer for the molecules of `routes` (three or
+        more reads each): their center-star rows from pairwise alignments on
+        this engine's device, all routes' pairs in one launch
+        (`hostnw_cuda.CenterStar`), then the host's majority
+        (`poa.consensus_from_msa`). One `consensus.host` span a route; the
+        pack, the launch, the download and the rows lie in the first
+        route's. Counter `consensus.host_pairs` by `route` and `where`
+        (`card`, or `host` on a CPU device)."""
+        routes = [r for r in routes if host[r]]
+        star = None
+        m = 0
+        for route in routes:
+            idxs = host[route]
+            reads = 0
+            with trace.span("consensus.host", route=route,
+                            molecules=len(idxs), **tag) as sp:
+                if star is None:
+                    star = hostnw_cuda.CenterStar(
+                        [molecules[mi] for r in routes for mi in host[r]],
+                        self.device)
+                for mi in idxs:
+                    results[mi] = poa.consensus_from_msa(star.rows(m), maxps)
+                    reads += len(molecules[mi])
+                    m += 1
+                sp.set(reads=reads)
+                if trace.ON:
+                    p0, p1 = np.searchsorted(star.pair_mol,
+                                             [m - len(idxs), m])
+                    trace.count("consensus.host_pairs", int(p1 - p0),
+                                route=route, where=star.where, **tag)
 
     def _build_bucket(self, molecules, idxs, Lc, W, centers_map=None):
         """Pack one bucket's pair batch.

@@ -16,8 +16,9 @@ and the first launch of each kernel on the card. `warm` pays them up front:
     (CHUNK reads; with `full`, also the smaller tail chunks), the band
     aligner at the consensus buckets (Lc 256 and 512; with `full`, 1,024
     and 2,048) and at the aligner's gap buckets (Lc 64; with `full`, 128
-    and 256), and the UMI distance matrix at a group of 288 UMIs (with
-    `full`, also one of 3,000);
+    and 256), the host engine's alignment on molecules with an N (with
+    `full`, also on a center over the largest bucket), and the UMI distance
+    matrix at a group of 288 UMIs (with `full`, also one of 3,000);
   - returns {kernel: ms}, the wall time of each kernel's warm calls.
 
 Each launch is checked by the wrapper's launch counter: a warm-up that did
@@ -34,13 +35,14 @@ import sys
 import time
 
 KERNELS = ("encode_two_half", "encode_composite", "edgescan", "bcsweep",
-           "tilefeed", "tilescan", "win1", "bandalign", "pairwise")
+           "tilefeed", "tilescan", "win1", "bandalign", "hostnw", "pairwise")
 CHUNK = 50_000    # reads a scanfastq chunk (ScanFastqPipeline's chunk_size)
 
 
 def _counters():
-    from sicelore_tpu_torch.ops import bcsearch, editdist, poa_cuda
+    from sicelore_tpu_torch.ops import bcsearch, editdist, hostnw_cuda
     from sicelore_tpu_torch.ops import encode_cuda as enc
+    from sicelore_tpu_torch.ops import poa_cuda
     from sicelore_tpu_torch.ops import tilescan_cuda as ts
     from sicelore_tpu_torch.ops.edgescan_cuda import edge_scan2
     return {"encode_two_half": enc.encode_two_half_dev,
@@ -48,6 +50,7 @@ def _counters():
             "edgescan": edge_scan2, "bcsweep": bcsearch.bc_sweep,
             "tilefeed": ts.tile_feed, "tilescan": ts.tile_scan,
             "win1": editdist.myers_win1, "bandalign": poa_cuda.band_align,
+            "hostnw": hostnw_cuda.host_nw,
             "pairwise": editdist.myers_global_group}
 
 
@@ -136,6 +139,16 @@ def jobs(dev, n_bc: int, full: bool, chunk: int) -> list:
                 gb.add(R, synth.mutate_np(rng, R, 0.03)[:len(R) + 4])
             gb.run()
         out.append((f"bandalign_gap_L{lc}", "bandalign", gaps))
+    # molecules the engine leaves to the host engine: an N (with `full`,
+    # also centers over its largest bucket), their pairs in one launch
+    for lc in [600] + ([2_200] if full else []):
+        mols = []
+        for _ in range(8):
+            t = bytearray(_reads(rng, 1, lc)[0])
+            t[lc // 2] = ord("N")
+            mols.append([synth.mutate_np(rng, bytes(t), 0.03)
+                         for _ in range(3)])
+        out.append((f"hostnw_L{lc}", "hostnw", lambda m=mols: engine(m)))
     for K in [288] + ([3_000] if full else []):
         umis = [dna.decode(rng.integers(0, 4, 12)).encode()
                 for _ in range(K)]

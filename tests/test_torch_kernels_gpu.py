@@ -884,3 +884,180 @@ def test_encode_kernel_shape_reads_pageable(dev, entry):
     parts = [kern(*st.upload(dev, a, b)) for a, b in spans]
     for w, g in zip(want, zip(*parts)):
         assert torch.equal(torch.cat(g).cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# the host engine's alignment (csrc/hostnw.cu)
+# ---------------------------------------------------------------------------
+
+def _long_pairs(rng, n=12):
+    """Centers of 2,100-2,300 nt against noisy reads up to 200 nt shorter,
+    some with an N."""
+    out = []
+    for i in range(n):
+        a = synth.random_seq(rng, int(rng.integers(2_100, 2_301))).encode()
+        b = bytearray(synth.mutate_np(rng, a, 0.04))
+        del b[: int(rng.integers(0, 200))]
+        if i % 3 == 0:
+            b[len(b) // 2] = ord("N")
+        out.append((a, bytes(b)))
+    return out
+
+
+def _mixed_pairs(rng, n=240):
+    """n pairs of every kind: the host-alignment cases, regular molecules'
+    pairs of 400-899 nt and long centers."""
+    out = [p for name in chip_smoke.HOSTNW_CASES
+           for p in chip_smoke.hostnw_pairs(name)]
+    out += _long_pairs(rng, 8)
+    while len(out) < n:
+        a = synth.random_seq(rng, int(rng.integers(400, 900))).encode()
+        out.append((a, synth.mutate_np(rng, a, 0.05)))
+    return out[:n]
+
+
+def _hostnw_vs_plain(pairs, dev):
+    from sicelore_tpu_torch.ops import hostnw_cuda as hn
+    from sicelore_tpu_torch.ops import poa
+    seq, a_off, la, b_off, lb = chip_smoke.hostnw_packed(pairs)
+    table = hn.pair_table(a_off, la, b_off, lb)
+    before = hn.host_nw.launches
+    mv, n = hn.host_nw(torch.from_numpy(seq.copy()).to(dev),
+                       torch.from_numpy(table).to(dev), table)
+    torch.cuda.synchronize()
+    assert hn.host_nw.launches == before + 1
+    mv_p, n_p = hn.host_nw_plain(torch.from_numpy(seq.copy()),
+                                 torch.from_numpy(table))
+    mv, n, mv_p, n_p = (x.cpu().numpy() for x in (mv, n, mv_p, n_p))
+    np.testing.assert_array_equal(n, n_p)
+    for p, (a, b) in enumerate(pairs):
+        s = slice(table[p, 5], table[p, 5] + n[p])
+        np.testing.assert_array_equal(mv[s], mv_p[s])
+        assert chip_smoke.hostnw_aligned(a, b, mv[s]) == \
+            poa.nw_align_banded(a, b), (p, len(a), len(b))
+
+
+@pytest.mark.parametrize("name", chip_smoke.HOSTNW_CASES
+                         + ("long", "mixed240"))
+def test_hostnw_kernel_matches_plain_and_host(dev, name):
+    """csrc/hostnw.cu's moves equal the plain version's and, as aligned
+    strings, `poa.nw_align_banded`'s, on the host-alignment cases, 2.1-2.3
+    kb centers and a batch of 240 mixed pairs (int32 exact at those
+    sizes); one launch each."""
+    rng = np.random.default_rng(91)
+    pairs = (_long_pairs(rng) if name == "long" else _mixed_pairs(rng)
+             if name == "mixed240" else chip_smoke.hostnw_pairs(name))
+    _hostnw_vs_plain(pairs, dev)
+
+
+def test_hostnw_kernel_rejects_other_inputs(dev):
+    from sicelore_tpu_torch.ops import hostnw_cuda as hn
+    seq, a_off, la, b_off, lb = chip_smoke.hostnw_packed(
+        chip_smoke.hostnw_pairs("tiny"))
+    table = hn.pair_table(a_off, la, b_off, lb)
+    s = torch.from_numpy(seq.copy()).to(dev)
+    t = torch.from_numpy(table).to(dev)
+    with pytest.raises(ValueError, match="host_table"):
+        hn.host_nw(s, t)
+    with pytest.raises(ValueError, match="one device"):
+        hn.host_nw(s, t.cpu(), table)
+
+
+@pytest.mark.parametrize("name", ("equal", "short_read", "all_n",
+                                  "band_edge", "repeats", "long",
+                                  "mixed240"))
+def test_hostnw_kernel_rows_in_the_slab(dev, name, monkeypatch):
+    """With the block's shared memory for rows cut to 128 ints, every pair
+    of a stride over 64 keeps its rows in the slab and walks back on it
+    (the path of reads too long for shared memory), the rest take stripes
+    of two rows or more: the moves stay the plain version's and the
+    host's."""
+    from sicelore_tpu_torch.ops import hostnw_cuda as hn
+    monkeypatch.setattr(hn, "SMEM_INTS", 128)
+    rng = np.random.default_rng(93)
+    pairs = (_long_pairs(rng, 6) if name == "long" else _mixed_pairs(rng)
+             if name == "mixed240" else chip_smoke.hostnw_pairs(name))
+    st = hn.strides([len(a) for a, _ in pairs], [len(b) for _, b in pairs])
+    assert (2 * st > hn.SMEM_INTS).any()
+    _hostnw_vs_plain(pairs, dev)
+
+
+@pytest.mark.parametrize("kind", ["wta", "deep"])
+def test_host_routes_on_the_card_are_the_host_engine(dev, kind):
+    """The engine on the card gives `poa.consensus_reads`'s bytes for every
+    molecule of a wta-like and a deep-like set of N, long-center and one-
+    or two-read molecules, with one host-alignment launch (routes n and
+    long together) and no plain body; every pair counted on the card."""
+    from sicelore_tpu_torch.ops import hostnw_cuda as hn
+    from sicelore_tpu_torch.ops import poa
+    from sicelore_tpu_torch.utils import trace
+    mols = chip_smoke.host_molecules(np.random.default_rng(92), kind)
+    before = (hn.host_nw.launches, hn.host_nw_plain.launches)
+    trace.enable()
+    try:
+        got = pc.BatchedConsensusEngine(device="cuda")(mols)
+        torch.cuda.synchronize()
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+    assert (hn.host_nw.launches, hn.host_nw_plain.launches) == \
+        (before[0] + 1, before[1])
+    for m, seqs in enumerate(mols):
+        assert got[m] == poa.consensus_reads(seqs, 3, 20), m
+    assert _pairs_where(snap) == {
+        "card": sum(len(s) - 1 for s in mols if len(s) > 2)}
+
+
+def _pairs_where(snap):
+    where = {}
+    for c in snap["counters"]:
+        if c["name"] == "consensus.host_pairs":
+            where[c["attrs"]["where"]] = where.get(c["attrs"]["where"], 0) \
+                + c["value"]
+    return where
+
+
+def test_host_routes_with_rows_in_the_slab(dev, monkeypatch):
+    """The engine's host routes with every pair's rows in the slab (shared
+    memory for rows cut to 128 ints) give `poa.consensus_reads`'s bytes."""
+    from sicelore_tpu_torch.ops import hostnw_cuda as hn
+    from sicelore_tpu_torch.ops import poa
+    monkeypatch.setattr(hn, "SMEM_INTS", 128)
+    mols = chip_smoke.host_molecules(np.random.default_rng(94), "wta")
+    before = (hn.host_nw.launches, hn.host_nw_plain.launches)
+    got = pc.BatchedConsensusEngine(device="cuda")(mols)
+    assert (hn.host_nw.launches, hn.host_nw_plain.launches) == \
+        (before[0] + 1, before[1])
+    for m, seqs in enumerate(mols):
+        assert got[m] == poa.consensus_reads(seqs, 3, 20), m
+
+
+def test_host_route_of_a_pair_too_wide_for_shared_memory(dev):
+    """A molecule of a 39.2 kb center, a read of its first ~28.75 kb and
+    a 600 nt read: the long pair's score row (min(2 band + 1, lb), band
+    |la - lb| + la // 10, some 14,400) is over half the block's shared
+    memory for rows, so its rows stay in the slab; the engine on the card
+    gives `poa.consensus_reads`'s bytes (the host's matrix of that pair:
+    9 GB), in one launch with no plain body, every pair counted on the
+    card."""
+    from sicelore_tpu_torch.ops import hostnw_cuda as hn
+    from sicelore_tpu_torch.ops import poa
+    from sicelore_tpu_torch.utils import trace
+    rng = np.random.default_rng(95)
+    center = synth.random_seq(rng, 39_200).encode()
+    mol = [center, synth.mutate_np(rng, center[:28_750], 0.03),
+           synth.mutate_np(rng, center[20_000:20_600], 0.03)]
+    st = hn.strides([len(center)] * 2, [len(mol[1]), len(mol[2])])
+    assert 2 * st[0] > hn.SMEM_INTS >= 2 * st[1]
+    before = (hn.host_nw.launches, hn.host_nw_plain.launches)
+    trace.enable()
+    try:
+        got = pc.BatchedConsensusEngine(device="cuda")([mol])
+        torch.cuda.synchronize()
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+    assert (hn.host_nw.launches, hn.host_nw_plain.launches) == \
+        (before[0] + 1, before[1])
+    assert _pairs_where(snap) == {"card": 2}
+    assert got[0] == poa.consensus_reads(mol, 3, 20)

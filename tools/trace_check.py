@@ -10,13 +10,19 @@ its times are the CPU's.)
 
 `agree`: a `--trace 1` run of the benchmark's cell a seed, in process
 (`benchmark/harness/cell.run_cell`), with the program's snapshot that its
-metrics read: the program's `consensus.host` spans against the harness's
-host-engine hook, the engine's sibling spans against the harness's engine
-self (each also with the collector's full pauses inside the host spans
-set apart, which fall between the hook's intervals), the route counters against the molecules the generator made (after
-the MAXREADS selection), each host route's and engine span's ms per 1,000
-molecules, and where every band-kernel launch lies among the spans. One
-JSON line a run.
+metrics read: the program's `consensus.host` spans of the routes that call
+the host engine (`short`, `asked`) against the harness's host-engine hook
+(`poa.consensus_reads`), the engine's sibling spans with the
+`consensus.host` spans of the routes whose alignments run on the card
+(`n`, `long`, `nopair`, `overflow`: no hook sees them) against the
+harness's engine self (each also with the collector's full pauses inside
+the host spans set apart, which fall between the hook's intervals), the
+route counters against the molecules the generator made (after the
+MAXREADS selection), each host route's and engine span's ms per 1,000
+molecules, the host-alignment pairs by route and where they ran, and
+where every launch lies among the spans (a band-kernel launch before its
+sub-batch's `consensus.wait` ends, a host-alignment launch inside its
+`consensus.host` span). One JSON line a run.
 
 `cost`: the wta cell's inputs through `compute_consensus` with the tracer
 off and on in turns (off first), after one warm-up call: each side's
@@ -38,6 +44,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 ENGINE = ("consensus.route", "consensus.pack", "consensus.upload",
           "consensus.device", "consensus.wait", "consensus.decode")
+HOOKED = ("short", "asked")     # host routes that call poa.consensus_reads
 
 
 def expected_routes(mols, maxreads: int, max_center_len: int = 2048) -> dict:
@@ -55,6 +62,12 @@ def expected_routes(mols, maxreads: int, max_center_len: int = 2048) -> dict:
         elif any(s.translate(None, b"ACGTacgt") for s in sel):
             out["n"] += 1
     return out
+
+
+def ratio(a: float, b: float) -> float | None:
+    """a / b; None where b is 0 (a cell with no 1-2-read molecule gives
+    the host-engine hook nothing to time)."""
+    return a / b if b else None
 
 
 def quartiles(xs) -> list[float]:
@@ -84,9 +97,16 @@ def agree(args) -> None:
                                if s["name"] == "consensus.host" else "")
             per_k[key] = per_k.get(key, 0.0) + (s["end"] - s["start"]) / 1e6
         per_k = {k: v * 1000 / units for k, v in sorted(per_k.items())}
-        host = sum(v for k, v in per_k.items()
-                   if k.startswith("consensus.host."))
-        engine = sum(per_k.get(k, 0.0) for k in ENGINE)
+        host = sum(per_k.get("consensus.host." + r, 0.0) for r in HOOKED)
+        aligned = sum(v for k, v in per_k.items()
+                      if k.startswith("consensus.host.")
+                      and k.split(".")[-1] not in HOOKED)
+        engine = sum(per_k.get(k, 0.0) for k in ENGINE) + aligned
+        pairs: dict = {}
+        for c in snap["counters"]:
+            if c["name"] == "consensus.host_pairs":
+                key = c["attrs"]["route"] + "." + c["attrs"]["where"]
+                pairs[key] = pairs.get(key, 0) + c["value"]
         routes: dict = {}
         for c in snap["counters"]:
             if c["name"] == "consensus.molecules":
@@ -101,10 +121,11 @@ def agree(args) -> None:
                        key=lambda s: s["start"])
         bad = 0
         for x in snap["launches"]:
-            call = next(c for c in calls if c["call"] ==
-                        by_id[x["span"]]["call"])
-            wait = next(w for w in waits if w["start"] >= x["enqueue"])
-            bad += not (x["enqueue"] <= x["start"] <= x["end"] <= wait["end"]
+            span = by_id[x["span"]]
+            call = next(c for c in calls if c["call"] == span["call"])
+            end = span["end"] if x["name"] == "hostnw" else next(
+                w for w in waits if w["start"] >= x["enqueue"])["end"]
+            bad += not (x["enqueue"] <= x["start"] <= x["end"] <= end
                         and call["start"] <= x["enqueue"]
                         and x["end"] <= call["end"])
         # the collector's full pauses (`gc` spans) inside each span
@@ -119,7 +140,8 @@ def agree(args) -> None:
                     / 1e6 * 1000 / units
         own = trace.self_ns(snap["spans"])
         host_self = sum(own[s["id"]] for s in snap["spans"]
-                        if s["name"] == "consensus.host") / 1e6 * 1000 / units
+                        if s["name"] == "consensus.host"
+                        and s["attrs"]["route"] in HOOKED) / 1e6 * 1000 / units
         gc_host = host - host_self
         gc_counts = {c["attrs"]["generation"]: c["value"]
                      for c in snap["counters"] if c["name"] == "gc.ns"}
@@ -127,37 +149,41 @@ def agree(args) -> None:
             if snap["launches"] else 0
         detail = []
         for x in snap["launches"]:
-            wait = next(w for w in waits if w["start"] >= x["enqueue"])
-            detail.append([round((x["enqueue"] - t_first) / 1e9, 3),
+            end = by_id[x["span"]]["end"] if x["name"] == "hostnw" else next(
+                w for w in waits if w["start"] >= x["enqueue"])["end"]
+            detail.append([x["name"], round((x["enqueue"] - t_first) / 1e9, 3),
                            (x["start"] - x["enqueue"]) / 1e3,
                            (x["end"] - x["start"]) / 1e3,
-                           (wait["end"] - x["end"]) / 1e3])
+                           (end - x["end"]) / 1e3])
         print(json.dumps({
             "workload": args.workload, "seed": seed,
             "correct": r["correct"], "calls": len(calls), "units": units,
             "host_spans_ms_per_kumi": host,
             "host_engine_ms_per_kumi": m.get(
                 "consensus.host_engine_ms_per_kumi"),
-            "host_ratio": host / m["consensus.host_engine_ms_per_kumi"],
+            "host_ratio": ratio(host, m["consensus.host_engine_ms_per_kumi"]),
             "engine_spans_ms_per_kumi": engine,
             "engine_self_ms_per_kumi": m.get(
                 "consensus.engine_self_ms_per_kumi"),
-            "engine_ratio": engine / m["consensus.engine_self_ms_per_kumi"],
+            "engine_ratio": ratio(engine,
+                                  m["consensus.engine_self_ms_per_kumi"]),
             "routes_per_call": {k: v / len(calls) for k, v in
                                 sorted(routes.items())},
             "generator_per_call": want,
+            "host_pairs_per_call": {k: v / len(calls) for k, v in
+                                    sorted(pairs.items())},
             "launches": len(snap["launches"]), "launches_outside": bad,
             "spans_per_call": len(snap["spans"]) / len(calls),
             "span_ms_per_kumi": per_k, "metrics": m,
-            "host_less_gc_ratio": host_self
-            / m["consensus.host_engine_ms_per_kumi"],
-            "engine_and_host_gc_ratio": (engine + gc_host)
-            / m["consensus.engine_self_ms_per_kumi"],
+            "host_less_gc_ratio": ratio(
+                host_self, m["consensus.host_engine_ms_per_kumi"]),
+            "engine_and_host_gc_ratio": ratio(
+                engine + gc_host, m["consensus.engine_self_ms_per_kumi"]),
             "gc_full_ms_per_kumi_by_parent": gc_ms,
             "gc_ms_per_kumi_by_generation": {
                 g: ns / 1e6 * 1000 / units for g, ns in gc_counts.items()},
             "clocks": snap["clocks"],
-            "launch_s_startlag_us_dur_us_waitmargin_us": detail,
+            "launch_name_s_startlag_us_dur_us_margin_us": detail,
             "device": r["device"]}), flush=True)
 
 
