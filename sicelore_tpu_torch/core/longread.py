@@ -163,8 +163,9 @@ class LongreadParser:
     While the program's tracer is on (`utils.trace`), a parse records once:
     counter `consensus.parse_ns` by `phase` (`decode`: `decode_record`, its
     tags included; `build`: `LongreadRecord.from_bam_record`), `bam.seq_bases`
-    and `bam.cigar_ops` over the records decoded, `consensus.cdna` by the
-    `source` of each kept record's cDNA (`CS`, `US`, `none`), and
+    (each record's `l_seq`: SEQ is not spelled out) and `bam.cigar_ops` over
+    the records decoded, `consensus.cdna` by the `source` of each kept
+    record's cDNA (`CS`, `US`, `none`), and
     `consensus.records_dropped` by `reason` (`null`, `chimeric`, `no_gene`,
     `no_umi`, `mapq0`: the cascade's steps)."""
 
@@ -194,7 +195,7 @@ class LongreadParser:
                 if on:
                     t_decode += t1 - t0
                     t_build += clock() - t1
-                    bases += len(r.seq)
+                    bases += r.l_seq
                     ops += len(r.cigar)
                 if rec is None:
                     self.stats.unvalid_records += 1

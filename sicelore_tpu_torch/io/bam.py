@@ -19,11 +19,16 @@ from pathlib import Path
 from typing import Iterator
 
 from sicelore_tpu_torch.io.bgzf import BGZFReader, BGZFWriter
+from sicelore_tpu_torch.utils import trace
 
 BAM_MAGIC = b"BAM\x01"
 CIGAR_OPS = "MIDNSHP=X"
 SEQ_NIBBLE = "=ACMGRSVTWYHKDBN"
 _NIB = {c: i for i, c in enumerate(SEQ_NIBBLE)}
+# packed SEQ -> letters: `bytes.hex()` spells each nibble as a hex digit,
+# high nibble first, and this maps each digit to its base
+_HEX_TO_BASE = str.maketrans("0123456789abcdef", SEQ_NIBBLE)
+_FIXED = struct.Struct("<iiBBHHHiiii")
 _CONSUMES_REF = frozenset("MDN=X")
 _CONSUMES_QUERY = frozenset("MIS=X")
 
@@ -41,9 +46,14 @@ class BamHeader:
 
 
 class BamRecord:
+    """One alignment record. `seq` is a `str` of `SEQ_NIBBLE` letters; a
+    record from `decode_record` holds SEQ as its packed nibble bytes and
+    spells it out on the first read of `seq` (counter `bam.seq_decoded`,
+    bases, while the program's tracer is on). `l_seq` is its length
+    either way."""
     __slots__ = ("qname", "flag", "ref_id", "pos", "mapq", "cigar",
-                 "next_ref_id", "next_pos", "tlen", "seq", "qual", "tags",
-                 "_bin")
+                 "next_ref_id", "next_pos", "tlen", "_seq", "_packed",
+                 "_l_seq", "qual", "tags", "_bin")
 
     def __init__(self, qname: str = "", flag: int = 4, ref_id: int = -1,
                  pos: int = -1, mapq: int = 0,
@@ -64,6 +74,26 @@ class BamRecord:
         self.qual = qual  # raw phred bytes (not +33), b"" if absent
         self.tags = tags or []  # ordered [(tag, type_char, value)]
         self._bin = None
+
+    @property
+    def seq(self) -> str:
+        if self._seq is None:
+            self._seq = self._packed.hex().translate(_HEX_TO_BASE)[
+                :self._l_seq]
+            self._packed = None
+            if trace.ON:
+                trace.count("bam.seq_decoded", self._l_seq)
+        return self._seq
+
+    @seq.setter
+    def seq(self, value: str):
+        self._seq = value
+        self._packed = None
+        self._l_seq = len(value)
+
+    @property
+    def l_seq(self) -> int:
+        return self._l_seq
 
     # -- flags ----------------------------------------------------------
     @property
@@ -133,29 +163,24 @@ class BamRecord:
 
 def decode_record(buf: bytes) -> BamRecord:
     (ref_id, pos, l_qname, mapq, _bin, n_cigar, flag, l_seq,
-     next_ref, next_pos, tlen) = struct.unpack_from("<iiBBHHHiiii", buf, 0)
+     next_ref, next_pos, tlen) = _FIXED.unpack_from(buf, 0)
     off = 32
     qname = buf[off:off + l_qname - 1].decode()
     off += l_qname
-    cigar = []
-    for _ in range(n_cigar):
-        v = struct.unpack_from("<I", buf, off)[0]
-        cigar.append((CIGAR_OPS[v & 0xF], v >> 4))
-        off += 4
+    cigar = [(CIGAR_OPS[v & 0xF], v >> 4)
+             for v in struct.unpack_from(f"<{n_cigar}I", buf, off)]
+    off += 4 * n_cigar
     nseq = (l_seq + 1) // 2
-    seq_bytes = buf[off:off + nseq]
+    packed = buf[off:off + nseq]
     off += nseq
-    chars = []
-    for i in range(l_seq):
-        b = seq_bytes[i // 2]
-        chars.append(SEQ_NIBBLE[(b >> 4) if i % 2 == 0 else (b & 0xF)])
-    seq = "".join(chars)
     qual = buf[off:off + l_seq]
     off += l_seq
     if qual[:1] == b"\xff":
         qual = b""
-    rec = BamRecord(qname, flag, ref_id, pos, mapq, cigar, seq, qual,
+    rec = BamRecord(qname, flag, ref_id, pos, mapq, cigar, "", qual,
                     decode_tags(buf, off), next_ref, next_pos, tlen)
+    if l_seq:
+        rec._seq, rec._packed, rec._l_seq = None, packed, l_seq
     return rec
 
 

@@ -25,8 +25,8 @@ where every launch lies among the spans (a band-kernel launch before its
 sub-batch's `consensus.wait` ends, a host-alignment launch inside its
 `consensus.host` span), and the parse's phases (counter
 `consensus.parse_ns`: `decode`, `build`) beside its span, whose time they
-may not pass, with its counts (SEQ bases, CIGAR ops, each kept cDNA's
-source, each drop's reason). One JSON line a run.
+may not pass, with its counts (SEQ bases, SEQ bases spelled out, CIGAR
+ops, each kept cDNA's source, each drop's reason). One JSON line a run.
 
 `cost`: a consensus cell's inputs (wta's unless `--workload` names
 another) through `compute_consensus` with the tracer off and on in turns
@@ -99,12 +99,13 @@ def parse_phases(snap) -> dict:
 
 def parse_counters(snap) -> dict:
     """The parse's counts, keyed `name` or `name.attribute value`: the SEQ
-    bases and CIGAR ops decoded, each kept cDNA's source, each drop's
-    reason."""
-    out: dict = {}
+    bases of the records decoded and those spelled out (`bam.seq_decoded`,
+    0 where no record's `seq` was read), the CIGAR ops, each kept cDNA's
+    source, each drop's reason."""
+    out: dict = {"bam.seq_bases": 0, "bam.seq_decoded": 0}
     for c in snap["counters"]:
-        if c["name"] in ("bam.seq_bases", "bam.cigar_ops", "consensus.cdna",
-                         "consensus.records_dropped"):
+        if c["name"] in ("bam.seq_bases", "bam.seq_decoded", "bam.cigar_ops",
+                         "consensus.cdna", "consensus.records_dropped"):
             key = ".".join([c["name"], *map(str, c["attrs"].values())])
             out[key] = out.get(key, 0) + c["value"]
     return out
