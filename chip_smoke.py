@@ -2127,8 +2127,7 @@ def path_counters():
             "plain_win1": editdist.myers_win1_plain,
             "plain_bandalign": poa_cuda.band_align_plain,
             "plain_hostnw": hostnw_cuda.host_nw_plain,
-            "plain_pairwise": editdist.myers_global_group_plain,
-            "plain_consensus_votes": poa_cuda.consensus_votes_plain}
+            "plain_pairwise": editdist.myers_global_group_plain}
 
 
 # the launch counters that mean a plain body ran (on the card: none may)
@@ -3595,8 +3594,7 @@ def _run(pool, wl, cells, work, dev) -> int:
     keys = write_bam(work / "cons.bam", mols, rng, "m")
     gen_s = time.time() - t0
     cons_counters = (poa_cuda.band_align, poa_cuda.band_align_plain,
-                     poa_cuda.consensus_votes_plain, hostnw_cuda.host_nw,
-                     hostnw_cuda.host_nw_plain)
+                     hostnw_cuda.host_nw, hostnw_cuda.host_nw_plain)
     for c in cons_counters:
         c.launches = 0
     t_run = time.time()
@@ -3608,8 +3606,6 @@ def _run(pool, wl, cells, work, dev) -> int:
     launches["bandalign"] = poa_cuda.band_align.launches
     launches["hostnw"] = hostnw_cuda.host_nw.launches
     cons_plain = {"band_align_plain": poa_cuda.band_align_plain.launches,
-                  "consensus_votes_plain":
-                      poa_cuda.consensus_votes_plain.launches,
                   "host_nw_plain": hostnw_cuda.host_nw_plain.launches}
     recs = read_fastq_records(work / "cons_cuda.fastq")
     multi = [r for r in recs if len(mols[keys[r[0].rsplit("-", 1)[0]]]) > 2
@@ -3696,8 +3692,7 @@ def _run(pool, wl, cells, work, dev) -> int:
         cons_mesh_s = time.time() - t_run
         launches_m["bandalign"] = poa_cuda.band_align.launches
         launches_m["hostnw"] = hostnw_cuda.host_nw.launches
-        plain_m["bandalign"] = (poa_cuda.band_align_plain.launches
-                                + poa_cuda.consensus_votes_plain.launches)
+        plain_m["bandalign"] = poa_cuda.band_align_plain.launches
         plain_m["hostnw"] = hostnw_cuda.host_nw_plain.launches
     mesh_files = output_files(work / "out_mesh", skip=())
     one_files = output_files(work / "out_cuda", skip=())

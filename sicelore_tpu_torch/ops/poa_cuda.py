@@ -27,12 +27,19 @@ contract per pair p (center = centers_mol[mids[p]]):
 The routing of molecules is that of the JAX engine's production path and is
 part of the result: 1- and 2-read molecules, centers over `max_center_len`,
 molecules with a non-ACGT byte (when maxps <= 63), buckets with no surviving
-pair and assemblies longer than Lc + Lc/8 + 16 get the host engine's answer
-(`ops.poa.consensus_reads`); maxps > 63 runs band W = `band` with the host
-float64 assembly. The 1- and 2-read molecules call the host engine; for the
-rest its pairwise alignments run on the engine's device
-(`ops.hostnw_cuda`: csrc/hostnw.cu on the card) and its merge and majority
-on the host, with the same bytes.
+pair and assemblies longer than Lc + Lc/8 + 16 (when maxps <= 63) get the
+host engine's answer (`ops.poa.consensus_reads`); maxps > 63 runs band W =
+`band` with no N screen and keeps every assembly, however long. Every
+bucket assembles on the engine's device (`assemble_votes`: its QV is a
+uint8 tensor of its own, so maxps has no 6-bit limit here). The 1- and
+2-read molecules call the host engine; for the rest its pairwise alignments
+run on the engine's device (`ops.hostnw_cuda`: csrc/hostnw.cu on the card)
+and its merge and majority on the host, with the same bytes.
+
+A mesh (a list of devices, `parallel.shard`) lives in the engine: each
+sub-batch's pairs are cut at molecule boundaries into one run a device,
+aligned and voted there, and the votes summed on the first device before
+the assembly (`BatchedConsensusEngine._votes`); one device is a mesh of one.
 """
 from __future__ import annotations
 
@@ -149,26 +156,6 @@ def _align_pairs_plain(center: torch.Tensor, clens: torch.Tensor,
         b = b + vert.to(torch.int64) - horiz.to(torch.int64)
         run = torch.where(horiz, run + 1, 0)
     return aligned, ins, feasible.to(torch.int32)
-
-
-def consensus_votes_plain(center, clens, reads, rlens, mol_ids, W: int,
-                          M: int):
-    """Votes of one bucket, plain PyTorch: the counterpart of the jnp
-    reference `consensus_votes`.
-
-    center [P, Lc] int8 codes, clens [P], reads [P, Lr] int8, rlens [P],
-    mol_ids [P] (segment ids < M). Returns (col_votes [M, Lc+1, 5] int32 —
-    channels A, C, G, T, gap — ins_votes [M, Lc+1, K_INS, 4] int32,
-    pair_counts [M] int32)."""
-    consensus_votes_plain.launches += 1
-    aligned, ins, feasible = _align_pairs_plain(center, clens, reads, rlens,
-                                                W)
-    cv, iv, pc = segment_votes(aligned, ins, feasible, mol_ids, M)
-    pad = torch.zeros((M, 1, 5), dtype=torch.int32, device=cv.device)
-    return torch.cat([cv, pad], dim=1), iv, pc
-
-
-consensus_votes_plain.launches = 0
 
 
 def band_align_plain(reads, rlens, mids, centers_mol, clens_mol, Lc: int,
@@ -334,8 +321,8 @@ class BatchedConsensusEngine:
         derives from the center-length bucket (w_for). `mesh`: a list of
         devices (`parallel.shard`): each sub-batch's pairs are split across
         it at molecule boundaries, and the votes are summed on its first
-        device before the assembly (`parallel.consensus_step`); the results
-        are those of one device."""
+        device before the assembly (`_votes`); the results are those of one
+        device."""
         self.band = band
         self.maxreads = maxreads
         self.max_center_len = max_center_len
@@ -373,10 +360,11 @@ class BatchedConsensusEngine:
         `route`; `refine` in the second pass): short (1-2 reads), long (a
         center over max_center_len), n (a non-ACGT byte, when maxps <= 63),
         nopair (a bucket with no pair left), overflow (an assembly longer
-        than the device route's output row) and device."""
+        than the device route's output row, when maxps <= 63) and device."""
         results: list = [None] * len(molecules)
-        # maxps <= 63: band by bucket, N screen, device assembly;
-        # above: band = self.band, no N screen, host float64 assembly
+        # maxps <= 63 (the JAX engine's Pallas route): band by bucket, N
+        # screen, overflow to the host engine; above (its jnp route): band
+        # = self.band, no N screen, every assembly kept
         bucketed = maxps <= 63
         tag = {} if centers_map is None else {"refine": True}
         host: dict[str, list[int]] = {r: [] for r in (
@@ -423,9 +411,8 @@ class BatchedConsensusEngine:
                 continue
             for m0, m1, p0, p1 in cuts:
                 host["overflow"] += self._run_batch(
-                    molecules, results, info[m0:m1], reads[p0:p1],
-                    rlens[p0:p1], mol_ids[p0:p1], m0, Lc, W, minps, maxps,
-                    bucketed, batch, tag)
+                    results, info[m0:m1], reads[p0:p1], rlens[p0:p1],
+                    mol_ids[p0:p1], m0, Lc, W, maxps, bucketed, batch, tag)
                 batch += 1
         self._host_aligned(molecules, results, host, ("nopair", "overflow"),
                            maxps, tag)
@@ -532,20 +519,18 @@ class BatchedConsensusEngine:
             yield m0, m1, int(first[m0]), int(first[m1])
             m0 = m1
 
-    def _run_batch(self, molecules, results, info, reads, rlens, mol_ids,
-                   m0, Lc, W, minps, maxps, bucketed, batch, tag):
+    def _run_batch(self, results, info, reads, rlens, mol_ids, m0, Lc, W,
+                   maxps, bucketed, batch, tag):
         """One sub-batch (its pairs' molecule ids count from m0): pack,
-        upload, align and vote (on each shard of the mesh, the votes
-        summed), wait for the card, assemble, download, decode. Returns the
-        molecules whose assembly is longer than the device route's output
-        row, for the host engine. Its spans (`consensus.pack`, `.upload`,
-        `.device`, `.wait`, `.decode`) open one after another."""
-        from sicelore_tpu_torch.parallel import consensus_step
+        upload, align and vote (`_votes`), wait for the card, assemble,
+        download, decode. Returns the molecules whose assembly is longer
+        than the device route's output row when `bucketed`, for the host
+        engine. Its spans (`consensus.pack`, `.upload`, `.device`, `.wait`,
+        `.decode`) open one after another."""
         dev = self.device
-        devs = self.mesh or [dev]
         P, M = len(reads), len(info)
-        with trace.span("consensus.pack", sub_batch=batch, pairs=P,
-                        molecules=M, **tag):
+        attrs = dict(sub_batch=batch, **tag)
+        with trace.span("consensus.pack", pairs=P, molecules=M, **attrs):
             r_arr = np.full((P, Lc + W), dna.PAD, np.int8)
             for p, s in enumerate(reads):
                 r_arr[p, :len(s)] = dna.encode(s)
@@ -555,38 +540,27 @@ class BatchedConsensusEngine:
             cl_arr = np.array([len(c) for _, c, _ in info], np.int32)
             rl_arr = np.asarray(rlens, np.int32)
             mid_arr = np.asarray(mol_ids, np.int32) - np.int32(m0)
-        with trace.span("consensus.upload", sub_batch=batch, **tag):
-            c_dev = torch.from_numpy(c_arr).to(devs[0])
-            cl_dev = torch.from_numpy(cl_arr).to(devs[0])
+        with trace.span("consensus.upload", **attrs):
+            c_dev = torch.from_numpy(c_arr).to(dev)
+            cl_dev = torch.from_numpy(cl_arr).to(dev)
             trace.count("consensus.h2d_bytes", c_arr.nbytes + cl_arr.nbytes,
                         **tag)
-        cv, iv, pc = consensus_step.make_sharded_bucket_fn(devs, Lc, W)(
-            r_arr, rl_arr, mid_arr, c_dev, cl_dev)
-        if not bucketed:
-            with trace.span("consensus.wait", sub_batch=batch, **tag):
-                cv, iv, pc = (cv.cpu().numpy(), iv.cpu().numpy(),
-                              pc.cpu().numpy())
-                trace.count("consensus.d2h_bytes",
-                            cv.nbytes + iv.nbytes + pc.nbytes, **tag)
-            with trace.span("consensus.decode", sub_batch=batch, **tag):
-                for m, (mi, cseq, _) in enumerate(info):
-                    results[mi] = self._assemble(cseq, cv[m], iv[m],
-                                                 int(pc[m]), maxps)
-            return []
-        with trace.span("consensus.wait", sub_batch=batch, **tag):
+        cv, iv, pc = self._votes(r_arr, rl_arr, mid_arr, c_dev, cl_dev, Lc, W,
+                                 batch, tag)
+        with trace.span("consensus.wait", **attrs):
             # the alignment and the votes done: the assembly reads its
             # largest vote count and its kept slots back from the card
-            if devs[0].type == "cuda":
-                torch.cuda.current_stream(devs[0]).synchronize()
-        with trace.span("consensus.device", sub_batch=batch, **tag):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        with trace.span("consensus.device", **attrs):
             codes, qv, out_len = assemble_votes(cv, iv, pc, c_dev, cl_dev,
                                                 maxps)
-        with trace.span("consensus.wait", sub_batch=batch, **tag):
+        with trace.span("consensus.wait", **attrs):
             codes, qv = codes.cpu().numpy(), qv.cpu().numpy()
             out_len = out_len.cpu().numpy()
             trace.count("consensus.d2h_bytes",
                         codes.nbytes + qv.nbytes + out_len.nbytes, **tag)
-        with trace.span("consensus.decode", sub_batch=batch, **tag):
+        with trace.span("consensus.decode", **attrs):
             cons_all = _ACGT_NP[codes].tobytes()
             qv_all = (qv + 33).astype(np.uint8).tobytes()
             ends = np.cumsum(out_len)
@@ -595,54 +569,49 @@ class BatchedConsensusEngine:
             overflow = []
             for m, (mi, cseq, _) in enumerate(info):
                 s, e = int(starts[m]), int(ends[m])
-                if e - s > out_cols:
+                if bucketed and e - s > out_cols:
                     # longer than the device route's output row: host engine
                     overflow.append(mi)
                 else:
                     results[mi] = (cons_all[s:e], qv_all[s:e])
         return overflow
 
-    @staticmethod
-    def _assemble(center: bytes, col_votes, ins_votes, n_pairs, maxps):
-        """Majority consensus + QV from vote tensors (host, vectorized).
+    def _votes(self, reads, rlens, mids, centers, clens, Lc, W, batch, tag):
+        """(cv, iv, pc) of `segment_votes` for all M molecules of a
+        sub-batch, on the engine's device. reads, rlens and mids (counted
+        from the sub-batch's first molecule, pairs ordered by molecule) are
+        host arrays; centers [M, Lc] and clens [M] are tensors on the
+        engine's device, where the assembly reads them. The pairs are cut at
+        molecule boundaries into one run a device of the mesh
+        (`_sub_batches`); each run is uploaded, aligned (`band_align`) and
+        voted on its device, with its molecules' centers and ids counted
+        from its first molecule, and the runs' votes are summed on the
+        engine's device. Each molecule's votes come from one run, so the sum
+        is that of one device byte for byte."""
+        devs = self.mesh or [self.device]
+        attrs = dict(sub_batch=batch, **tag)
+        P, M = len(mids), len(clens)
+        runs = list(self._sub_batches(mids, M, -(-P // len(devs))))
 
-        R = n_pairs + 1 (center votes its own base per column; reads
-        without an insertion vote gap in insertion columns). Emission
-        order per center position j: insertion columns (offset o
-        descending — right-justified trace order), then base column j;
-        majority-deletion columns are dropped (gap stripped)."""
-        lc = len(center)
-        R = n_pairs + 1
-        ccodes = np.minimum(dna.encode(center), 4).astype(np.int64)
-        cv = np.asarray(col_votes[:lc])            # [lc, 5]
-        iv = np.asarray(ins_votes[:lc + 1])        # [lc+1, K, 4]
-        K = K_INS
-        # slot layout: row j holds K insertion slots (o = K-1..0) then the
-        # base slot; total (lc+1)*(K+1) slots, last row's base slot unused
-        S = (lc + 1) * (K + 1)
-        code = np.zeros(S, np.int64)
-        win = np.zeros(S, np.int64)
-        keep = np.zeros(S, bool)
-        # insertion slots: argmax base wins iff votes > gap votes (R - sum)
-        ib = iv.argmax(axis=2)                     # [lc+1, K]
-        ivw = np.take_along_axis(iv, ib[:, :, None], axis=2)[:, :, 0]
-        ikeep = (ivw > R - iv.sum(axis=2)) & (ivw > 0)
-        slots = (np.arange(lc + 1)[:, None] * (K + 1)
-                 + (K - 1 - np.arange(K))[None, :])
-        code[slots.ravel()] = ib.ravel()
-        win[slots.ravel()] = ivw.ravel()
-        keep[slots.ravel()] = ikeep.ravel()
-        # base slots: center's own base votes too
-        if lc:
-            cv = cv.copy()
-            np.add.at(cv, (np.arange(lc), ccodes), 1)
-            bb = cv.argmax(axis=1)                 # [lc]
-            bw = np.take_along_axis(cv, bb[:, None], axis=1)[:, 0]
-            bslots = np.arange(lc) * (K + 1) + K
-            code[bslots] = bb
-            win[bslots] = bw
-            keep[bslots] = bb != 4
-        code, win = code[keep], win[keep]
-        out = _ACGT_NP[np.minimum(code, 3)].tobytes()
-        q = qv_table(maxps, R)[win, R]
-        return out, (q + 33).tobytes()
+        def run(dev, m0, m1, p0, p1):
+            with trace.span("consensus.upload", **attrs):
+                host = [np.ascontiguousarray(a) for a in (
+                    reads[p0:p1], rlens[p0:p1], mids[p0:p1] - m0)]
+                r, rl, mid = (torch.from_numpy(a).to(dev) for a in host)
+                c, cl = centers[m0:m1].to(dev), clens[m0:m1].to(dev)
+                trace.count("consensus.h2d_bytes",
+                            sum(a.nbytes for a in host), **tag)
+            with trace.span("consensus.device", **attrs):
+                al, ins, feas = band_align(r, rl, mid, c, cl, Lc, W)
+                return segment_votes(al, ins, feas, mid, m1 - m0)
+
+        parts = shard.map_shards(devs, runs, run)
+        if len(parts) == 1:
+            return parts[0]
+        with trace.span("consensus.device", **attrs):
+            tot = [torch.zeros((M,) + t.shape[1:], dtype=t.dtype,
+                               device=self.device) for t in parts[0]]
+            for (m0, m1, _, _), part in zip(runs, parts):
+                for acc, t in zip(tot, part):
+                    acc[m0:m1] += t.to(self.device)
+        return tuple(tot)

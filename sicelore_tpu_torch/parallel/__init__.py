@@ -5,6 +5,4 @@
   multihost       several processes over one run's fastq files, joined by
                   torch.distributed (gloo): file shards, count all-reduce,
                   stats merge.
-  consensus_step  consensus pair batches split across a mesh, votes summed
-                  before the assembly.
 """

@@ -118,8 +118,8 @@ def test_engine_host_routes_are_the_host_engine(overflow, monkeypatch):
     if overflow:
         run = engine._run_batch
 
-        def every_one_overflows(molecules, results, info, *a, **kw):
-            run(molecules, results, info, *a, **kw)
+        def every_one_overflows(results, info, *a, **kw):
+            run(results, info, *a, **kw)
             return [mi for mi, _, _ in info]
         monkeypatch.setattr(engine, "_run_batch", every_one_overflows)
     trace.enable()

@@ -18,7 +18,7 @@ from sicelore_tpu.utils import synth
 from sicelore_tpu.utils.config import PipelineConfig
 from sicelore_tpu_torch.models.readscan import ReadScanModel
 from sicelore_tpu_torch.ops import poa_cuda
-from sicelore_tpu_torch.parallel import consensus_step, shard
+from sicelore_tpu_torch.parallel import shard
 from sicelore_tpu_torch.pipeline.scanfastq import ScanFastqPipeline
 from sicelore_tpu_torch.utils import dna
 from sicelore_tpu_torch.utils import synth as tsynth
@@ -273,25 +273,37 @@ def test_consensus_mesh_molecules_without_pairs(spans_seen):
     assert 3 in spans_seen
 
 
-def test_sharded_consensus_step_matches_jax_and_one_device():
-    """The plain route: votes of pairs cut into 4 contiguous spans (a
-    molecule may span two), summed, against the JAX sharded jnp step on a
-    4-device mesh and against one `consensus_votes_plain` call."""
+def test_engine_votes_on_a_mesh_match_jax_and_one_device(spans_seen):
+    """`BatchedConsensusEngine._votes` on a 4-CPU mesh: the pairs cut into
+    four runs at molecule boundaries (the last molecule has no pair),
+    their votes summed, against one device's and against the JAX sharded
+    jnp step on a 4-device mesh over the same pairs."""
     rng = np.random.default_rng(33)
     mols, _ = tsynth.molecule_set(rng, 9, 4, 0.05, 180)
     arrs = tsynth.pair_arrays(mols, 256, 32)
     P = len(arrs[4]) // 4 * 4
     arrs = [a[:P] for a in arrs]
+    center, clens, reads, rlens, mids = arrs
     M = len(mols)
-    step, n = consensus_step.make_sharded_consensus_step(["cpu"] * 4, 32, M)
-    assert n == 4
-    got = step(*arrs)
+    cmol, clm = (torch.from_numpy(a) for a in dna.encode_batch(
+        [max(s, key=len) for s in mols], 256))
+
+    def votes(**mesh):
+        engine = poa_cuda.BatchedConsensusEngine(device="cpu", **mesh)
+        cv, iv, pc = engine._votes(reads, rlens, mids, cmol, clm, 256, 32,
+                                   0, {})
+        # consensus_votes' col_votes carry one more column, an empty one
+        return torch.cat([cv, torch.zeros((M, 1, 5), dtype=cv.dtype)],
+                         1), iv, pc
+
+    got = votes(mesh=["cpu"] * 4)
+    assert spans_seen == [4]
+    one = votes()
+    assert spans_seen == [4, 1]
     jstep, jn = jax_step.make_sharded_consensus_step(_jax_mesh(4), 32, M)
     ref = jstep(*(jnp.asarray(a) for a in arrs))
-    one = poa_cuda.consensus_votes_plain(
-        *(torch.from_numpy(a) for a in arrs), 32, M)
     assert jn == 4
     for g, r, o in zip(got, ref, one):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
         np.testing.assert_array_equal(g.numpy(), o.numpy())
-    assert int(got[2].sum()) > P // 2
+    assert int(got[2].sum()) > P // 2 and int(got[2][-1]) == 0

@@ -1,8 +1,9 @@
 """The port's consensus engine (plain torch bodies on the CPU) against the
-JAX package: the plain votes against the jnp reference `consensus_votes`,
-the engine against the production Pallas route in interpret mode and against
-the jnp route at maxps > 63, and the QV table against both JAX QV
-formulations. Tolerance: exact (integers and bytes) everywhere."""
+JAX package: the plain band alignment and votes against the jnp reference
+`consensus_votes`, the engine against the production Pallas route in
+interpret mode and against the jnp route at maxps > 63, and the QV table
+against both JAX QV formulations. Tolerance: exact (integers and bytes)
+everywhere."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,7 +11,7 @@ import torch
 
 from sicelore_tpu.ops import poa_tpu as jax_poa
 from sicelore_tpu_torch.ops import poa_cuda as pc
-from sicelore_tpu_torch.utils import synth
+from sicelore_tpu_torch.utils import synth, trace
 
 
 def _indel_molecule(rng, length, n_reads, ins_lo, ins_hi):
@@ -100,20 +101,31 @@ def _votes_case(name):
 
 @pytest.mark.parametrize("name", ["w32", "w64"])
 def test_plain_votes_match_jnp_reference(name):
+    """`band_align` on CPU tensors (its plain version) and `segment_votes`
+    against `consensus_votes`, whose col_votes carry one more column, an
+    empty one."""
     mols, Lc, W = _votes_case(name)
-    arrs = synth.pair_arrays(mols, Lc, W)
+    center, clens, reads, rlens, mids = synth.pair_arrays(mols, Lc, W)
     M = len(mols)
-    ref = jax_poa.consensus_votes(*(jnp.asarray(a) for a in arrs), W, M)
-    before = pc.consensus_votes_plain.launches
-    got = pc.consensus_votes_plain(*(torch.from_numpy(a) for a in arrs),
-                                   W, M)
-    assert pc.consensus_votes_plain.launches == before + 1
+    ref = jax_poa.consensus_votes(
+        *(jnp.asarray(a) for a in (center, clens, reads, rlens, mids)), W, M)
+    first = np.searchsorted(mids, np.arange(M))
+    t_mids = torch.from_numpy(mids)
+    before = pc.band_align_plain.launches
+    aligned, ins, feas = pc.band_align(
+        torch.from_numpy(reads), torch.from_numpy(rlens), t_mids,
+        torch.from_numpy(center[first]), torch.from_numpy(clens[first]),
+        Lc, W)
+    assert pc.band_align_plain.launches == before + 1
+    cv, iv, pairs = pc.segment_votes(aligned, ins, feas, t_mids, M)
+    got = (torch.cat([cv, torch.zeros((M, 1, 5), dtype=torch.int32)], 1),
+           iv, pairs)
     for g, r, what in zip(got, ref, ("col_votes", "ins_votes", "pairs")):
         r = np.asarray(r)
         assert g.dtype == torch.int32 and tuple(g.shape) == r.shape, what
         np.testing.assert_array_equal(g.numpy(), r, err_msg=what)
     col, ins, pairs = (g.numpy() for g in got)
-    assert pairs.sum() >= len(arrs[0]) - 2 and ins.max() >= 2
+    assert pairs.sum() >= len(reads) - 2 and ins.max() >= 2
     if name == "w32":
         assert pairs[-2] == 1           # the short read is infeasible
         assert ins[:, :, pc.K_INS - 1].sum() > 0   # runs past K_INS
@@ -223,20 +235,78 @@ def test_sub_batches_do_not_change_results(port_engine, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# maxps > 63: the jnp route (band = self.band, no N screen, host assembly)
+# maxps > 63: the jnp route (band = self.band, no N screen, every assembly
+# kept, however long)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("band", [64, 32])
-def test_engine_matches_jnp_route_at_maxps_64(band):
+def _jnp_route_case(band, maxps):
+    """The W = 32 set, an N, two reads, and two reads with a run of ten A
+    beside their center: an insertion slot of 14 votes where R is 3, which
+    the jnp route's float64 QV takes as full agreement."""
     rng = np.random.default_rng(40 + band)
     mols = _w32_set(rng)[2:8]
     mols.append(_with_n(rng))
     mols.append([b"ACGTACGTAA", b"ACGTACGTAAACG"])
+    t = synth.random_seq(np.random.default_rng(3), 200)
+    run = (t[:20] + t[30:100] + "A" * 10 + t[100:]).encode()
+    mols.append([t.encode(), run, run])
     ref = jax_poa.BatchedConsensusEngine(band=band, force="jnp")(
-        mols, maxps=64)
-    got = pc.BatchedConsensusEngine(band=band, device="cpu")(mols, maxps=64)
+        mols, maxps=maxps)
+    got = pc.BatchedConsensusEngine(band=band, device="cpu")(mols,
+                                                             maxps=maxps)
     _same(got, ref)
-    assert max(max(q) for _, q in got) == 33 + 64
+    assert max(max(q) for _, q in got) == 33 + maxps
+
+
+@pytest.mark.parametrize("band", [64, 32])
+def test_engine_matches_jnp_route_at_maxps_64(band):
+    _jnp_route_case(band, 64)
+
+
+def test_engine_matches_jnp_route_at_maxps_120():
+    _jnp_route_case(64, 120)
+
+
+def test_engine_keeps_long_assemblies_above_maxps_63(monkeypatch):
+    """An assembly longer than the device route's output row (Lc + Lc // 8
+    + 16) is the device's above maxps 63, as the jnp route keeps it, and
+    the host engine's (route overflow) at maxps 20. Reads alone hardly make
+    one under linear gaps, so both engines' votes get one more A vote of
+    every pair in every insertion slot."""
+    rng = np.random.default_rng(44)
+    mols, _ = synth.molecule_set(rng, 2, 4, 0.05, 200)
+
+    def more_a(iv, mids, M):
+        iv = np.array(iv)
+        per_mol = np.bincount(np.asarray(mids), minlength=M)[:M]
+        iv[..., 0] += per_mol[:, None, None].astype(iv.dtype)
+        return iv
+
+    jax_votes, port_votes = jax_poa.consensus_votes, pc.segment_votes
+
+    def jax_more(center, clens, reads, rlens, mids, W, M):
+        cv, iv, n = jax_votes(center, clens, reads, rlens, mids, W, M)
+        return cv, jnp.asarray(more_a(iv, mids, M)), n
+
+    def port_more(aligned, ins, feasible, mids, M):
+        cv, iv, n = port_votes(aligned, ins, feasible, mids, M)
+        return cv, torch.from_numpy(more_a(iv, mids, M)), n
+
+    monkeypatch.setattr(jax_poa, "consensus_votes", jax_more)
+    monkeypatch.setattr(pc, "segment_votes", port_more)
+    ref = jax_poa.BatchedConsensusEngine(force="jnp")(mols, maxps=64)
+    got = pc.BatchedConsensusEngine(device="cpu")(mols, maxps=64)
+    _same(got, ref)
+    assert all(len(c) > 256 + 256 // 8 + 16 for c, _ in got)
+    trace.enable()
+    try:
+        pc.BatchedConsensusEngine(device="cpu")(mols, maxps=20)
+        snap = trace.snapshot()
+    finally:
+        trace.disable()
+    routes = {c["attrs"]["route"]: c["value"] for c in snap["counters"]
+              if c["name"] == "consensus.molecules"}
+    assert routes["overflow"] == 2 and routes["device"] == 0
 
 
 # ---------------------------------------------------------------------------

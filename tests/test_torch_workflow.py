@@ -117,7 +117,7 @@ def test_run_pipeline_byte_identical_to_jax(align_runs):
     assert {"plain_edgescan", "plain_bcsweep", "plain_tilescan",
             "plain_bandalign"} <= set(launches)
     assert not set(launches) & {"edgescan", "bcsweep", "tilescan", "win1",
-                                "bandalign", "plain_consensus_votes"}
+                                "bandalign"}
     # the reads land in their genes (test_align's own check)
     rows = (d / "torch" / "isomatrix" / "sicelore_genematrix.txt"
             ).read_text().splitlines()
