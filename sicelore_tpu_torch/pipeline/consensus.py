@@ -31,7 +31,19 @@ def compute_consensus(input_bam, output_fastq, maxreads: int = 20,
     One call is one `consensus.call` of the program's tracer (`utils.trace`),
     with the spans `consensus.parse`, `consensus.group`, `consensus.select`,
     the engine's (`consensus.host` with route "asked" for the host engine)
-    and `consensus.write` inside it."""
+    and `consensus.write` inside it.
+
+    The interpreter's cyclic collector is held off from before the parse
+    until the call's objects are freed (`trace.hold_gc`): they die by
+    reference count, and a collection inside the call would rescan the
+    parsed BAM's records, reads and molecules over and over."""
+    with trace.hold_gc():
+        return _compute_consensus(input_bam, output_fastq, maxreads, minps,
+                                  maxps, tags, engine, log_json, device)
+
+
+def _compute_consensus(input_bam, output_fastq, maxreads, minps, maxps,
+                       tags, engine, log_json, device):
     with trace.call("consensus.call") as call:
         if engine is None:
             from sicelore_tpu_torch.ops.poa_cuda import BatchedConsensusEngine

@@ -38,9 +38,20 @@ host ns to the counter `gc.ns` and one to `gc.collections` (by
 `generation`), and each full collection (generation 2, tens to hundreds of
 milliseconds with a parsed BAM in memory) is a `gc` span, a child of the
 span it interrupted, so that span's self time leaves the pause out.
+
+  hold_gc()                a context manager that keeps the collector off
+                           for a block whose objects die by reference
+                           count (one `compute_consensus`), and puts back
+                           the state it found on every exit; while on,
+                           counter `gc.held` (one a hold) and
+                           `gc.held_objects` (the generation-0 count at
+                           release less at hold: the tracked objects the
+                           block left alive, which the first collection
+                           after it scans)
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -145,6 +156,26 @@ def _on_gc(phase: str, info: dict) -> None:
         sp._place(_stack())
         sp.start, sp.end = _S.gc_start, t
         _S.spans.append(sp)
+
+
+@contextlib.contextmanager
+def hold_gc():
+    """No cyclic collection inside the block: a collection rescans every
+    tracked object, and a block that parses a BAM keeps hundreds of
+    thousands alive at once, which reference counting frees anyway. The
+    collector is enabled again at the end only if it was enabled at the
+    start; no threshold is touched and nothing is collected here."""
+    was = gc.isenabled()
+    gc.disable()
+    n0 = gc.get_count()[0]
+    try:
+        yield
+    finally:
+        if ON:
+            count("gc.held")
+            count("gc.held_objects", gc.get_count()[0] - n0)
+        if was:
+            gc.enable()
 
 
 def span(name: str, **attrs):

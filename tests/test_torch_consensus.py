@@ -1,9 +1,12 @@
 """computeconsensus: the port's pipeline (engine on the CPU) against the JAX
 package's (production Pallas route, interpret mode) on one tagged BAM:
-output fastq and .log stats byte-identical, and the CLI once."""
+output fastq and .log stats byte-identical, and the CLI once; a call holds
+the interpreter's cyclic collector off and puts back the state it found."""
+import gc
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -14,7 +17,7 @@ from sicelore_tpu.pipeline.consensus import compute_consensus as jax_consensus
 from sicelore_tpu_torch.io.bam import BamHeader, BamRecord, BamWriter
 from sicelore_tpu_torch.ops import poa_cuda
 from sicelore_tpu_torch.pipeline.consensus import compute_consensus
-from sicelore_tpu_torch.utils import synth
+from sicelore_tpu_torch.utils import synth, trace
 
 REPO = Path(__file__).resolve().parents[1]
 HDR = BamHeader("@SQ\tSN:chr1\tLN:100000\n", [("chr1", 100000)])
@@ -137,3 +140,116 @@ def test_cli_computeconsensus_cpu(tagged_bam, tmp_path):
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                            cwd=REPO, env=env)
         assert r.returncode != 0 and "cuda" in r.stderr
+
+
+# ---------------------------------------------------------------------------
+# the collector held off across a call
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def collector():
+    """The collector's thresholds as the test found them (its state and
+    they are put back after it)."""
+    was, thresholds = gc.isenabled(), gc.get_threshold()
+    yield thresholds
+    gc.set_threshold(*thresholds)
+    (gc.enable if was else gc.disable)()
+
+
+def _cpu_engine(seen):
+    """The batched engine on the CPU, noting the collector's state each
+    time it is called."""
+    eng = poa_cuda.BatchedConsensusEngine(device="cpu")
+
+    def run(jobs, **kw):
+        seen.append(gc.isenabled())
+        return eng(jobs, **kw)
+    return run
+
+
+@pytest.mark.parametrize("enabled", [True, False], ids=["on", "off"])
+def test_call_puts_back_the_collectors_state(tagged_bam, tmp_path,
+                                             collector, enabled):
+    """Off inside the call; after it, on where it was on and off where the
+    caller had switched it off."""
+    bam, n_mol, _ = tagged_bam
+    (gc.enable if enabled else gc.disable)()
+    seen = []
+    got = compute_consensus(bam, tmp_path / "c.fastq",
+                            engine=_cpu_engine(seen))
+    assert seen == [False]
+    assert gc.isenabled() is enabled
+    assert got["written"] == n_mol
+
+
+def test_engine_that_raises_leaves_the_collector_enabled(tagged_bam,
+                                                         tmp_path,
+                                                         collector):
+    bam, _, _ = tagged_bam
+    gc.enable()
+    seen = []
+
+    def engine(jobs, **kw):
+        seen.append(gc.isenabled())
+        raise RuntimeError("engine failed")
+    with pytest.raises(RuntimeError, match="engine failed"):
+        compute_consensus(bam, tmp_path / "x.fastq", engine=engine)
+    assert seen == [False]
+    assert gc.isenabled()
+
+
+def test_traced_call_counts_its_hold_and_no_collection(tagged_bam, tmp_path,
+                                                       collector):
+    """With a collection due at every tracked allocation (threshold 1):
+    none starts between `consensus.call`'s start and end, the first comes
+    once the hold ends, and the tracer counts one hold and the tracked
+    objects the call left alive."""
+    bam, n_mol, _ = tagged_bam
+    eng = poa_cuda.BatchedConsensusEngine(device="cpu")
+    starts = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            starts.append(time.perf_counter_ns())
+    gc.enable()
+    gc.callbacks.append(on_gc)
+    trace.enable()
+    try:
+        gc.set_threshold(1)
+        got = compute_consensus(bam, tmp_path / "t.fastq", engine=eng)
+        after = [[] for _ in range(3)]
+    finally:
+        gc.set_threshold(*collector)
+        trace.disable()
+        gc.callbacks.remove(on_gc)
+    snap = trace.snapshot()
+    trace.reset()
+    assert got["written"] == n_mol and len(after) == 3
+    call = next(s for s in snap["spans"] if s["name"] == "consensus.call")
+    assert not [t for t in starts if call["start"] <= t <= call["end"]]
+    assert [t for t in starts if t > call["end"]]
+    assert not [s for s in snap["spans"]
+                if s["name"] == "gc" and s["call"] == call["call"]]
+    held = {c["name"]: c["value"] for c in snap["counters"]
+            if c["name"] in ("gc.held", "gc.held_objects")}
+    assert held["gc.held"] == 1 and held["gc.held_objects"] > 0
+
+
+def test_held_call_writes_the_jax_packages_bytes(tagged_bam, tmp_path,
+                                                 collector):
+    """With the collector on at threshold 1 around the call, the fastq is
+    the one `test_compute_consensus_byte_identical_to_jax` holds to the
+    JAX package's."""
+    bam, n_mol, _ = tagged_bam
+    jax_consensus(bam, tmp_path / "jax.fastq",
+                  engine=JaxEngine(force="pallas-interpret"))
+    eng = poa_cuda.BatchedConsensusEngine(device="cpu")
+    gc.enable()
+    gc.set_threshold(1)
+    try:
+        got = compute_consensus(bam, tmp_path / "torch.fastq", engine=eng)
+    finally:
+        gc.set_threshold(*collector)
+    assert got["written"] == n_mol
+    assert (tmp_path / "torch.fastq").read_bytes() == \
+        (tmp_path / "jax.fastq").read_bytes()

@@ -26,7 +26,12 @@ sub-batch's `consensus.wait` ends, a host-alignment launch inside its
 `consensus.host` span), and the parse's phases (counter
 `consensus.parse_ns`: `decode`, `build`) beside its span, whose time they
 may not pass, with its counts (SEQ bases, SEQ bases spelled out, CIGAR
-ops, each kept cDNA's source, each drop's reason). One JSON line a run.
+ops, each kept cDNA's source, each drop's reason), and the collector: its
+ms a kUMI by generation, the holds a call (`gc.held`) and the tracked
+objects a hold left (`gc.held_objects`), and by generation the
+collections that started inside a `consensus.call` span (none while each
+call holds the collector off), timed by a callback of this tool's own.
+One JSON line a run.
 
 `cost`: a consensus cell's inputs (wta's unless `--workload` names
 another) through `compute_consensus` with the tracer off and on in turns
@@ -120,9 +125,18 @@ def agree(args) -> None:
     over = {"mix": {"molecules": args.molecules}} if args.molecules else None
     _, config, traffic, _ = cell.load_cell(bench, args.workload, over)
     for seed in args.seeds:
-        r = cell.run_cell(args.workload, seed, args.seconds, True,
-                          args.device, bench=bench, overrides=over,
-                          log=lambda *a, **k: None)
+        starts = []         # (host ns, generation) of every collection
+
+        def on_gc(phase, info):
+            if phase == "start":
+                starts.append((time.perf_counter_ns(), info["generation"]))
+        gc.callbacks.append(on_gc)
+        try:
+            r = cell.run_cell(args.workload, seed, args.seconds, True,
+                              args.device, bench=bench, overrides=over,
+                              log=lambda *a, **k: None)
+        finally:
+            gc.callbacks.remove(on_gc)
         snap = _program._taken[1]
         m = {k: v["value"] for k, v in r["metrics"].items()}
         calls = [s for s in snap["spans"] if s["name"] == "consensus.call"]
@@ -181,6 +195,12 @@ def agree(args) -> None:
         gc_host = host - host_self
         gc_counts = {c["attrs"]["generation"]: c["value"]
                      for c in snap["counters"] if c["name"] == "gc.ns"}
+        held = {c["name"]: c["value"] for c in snap["counters"]
+                if c["name"] in ("gc.held", "gc.held_objects")}
+        in_calls: dict = {}
+        for t, g in starts:
+            if any(c["start"] <= t <= c["end"] for c in calls):
+                in_calls[g] = in_calls.get(g, 0) + 1
         t_first = min(x["enqueue"] for x in snap["launches"]) \
             if snap["launches"] else 0
         detail = []
@@ -220,6 +240,10 @@ def agree(args) -> None:
             "gc_full_ms_per_kumi_by_parent": gc_ms,
             "gc_ms_per_kumi_by_generation": {
                 g: ns / 1e6 * 1000 / units for g, ns in gc_counts.items()},
+            "gc_held_per_call": held.get("gc.held", 0) / len(calls),
+            "gc_held_objects_per_call": held.get("gc.held_objects", 0)
+            / len(calls),
+            "gc_collections_inside_calls": in_calls,
             "parse_phases_ms_per_kumi": {
                 **{ph: ns / 1e6 * 1000 / units
                    for ph, ns in parse_phases(snap).items()},
