@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from sicelore_tpu_torch.ops import _build, poa
+from sicelore_tpu_torch.utils import trace
 
 MATCH, MISMATCH, GAP, NEG = poa.MATCH, poa.MISMATCH, poa.GAP, poa.NEG
 DIAG, UP, LEFT = 0, 1, 2
@@ -271,26 +272,42 @@ def align_pairs(seq: np.ndarray, a_off, la, b_off, lb, device):
     seq: the packed bytes (uint8, writable). The pairs go up with the bytes,
     run in one call of `host_nw` (one more for each further SLAB_BYTES of
     score rows) and come down in one copy of each output: on a CUDA device
-    a launch of csrc/hostnw.cu, on a CPU device the plain version."""
-    device = torch.device(device)
-    table = pair_table(a_off, la, b_off, lb)
-    P = len(table)
-    moves = np.zeros(int(table[:, 1].sum() + table[:, 3].sum()), np.int8)
-    n = np.zeros(P, np.int32)
-    cost = table[:, 1] * strides(table[:, 1], table[:, 3]) * 4
-    if not len(seq):
-        seq = np.zeros(1, np.uint8)
-    seq_t = torch.from_numpy(seq).to(device)
-    # launches of about SLAB_BYTES of score rows each
-    cuts = np.unique(np.cumsum(cost) // SLAB_BYTES, return_index=True)[1][1:]
-    for g in np.split(np.arange(P), cuts):
-        sub = pair_table(*table[g, :4].T)
-        mv, cnt = host_nw(seq_t, torch.from_numpy(sub).to(device), sub)
-        mv, cnt = mv.cpu().numpy(), cnt.cpu().numpy()
-        # the group's moves at the pairs' places in the whole layout
-        shift = np.repeat(table[g, 5] - sub[:, 5], sub[:, 1] + sub[:, 3])
-        moves[np.arange(len(mv)) + shift] = mv
-        n[g] = cnt
+    a launch of csrc/hostnw.cu, on a CPU device the plain version.
+
+    Traced (`utils.trace`): one `hostnw.align` span around the table, the
+    upload, every call and every download (attributes `pairs`,
+    `launches`), and for each call of `host_nw` the counters
+    `hostnw.pairs`, `hostnw.band_cells` (the cells `nw_align_banded` fills:
+    la x `strides` a pair) and `hostnw.move_bytes` (la + lb a pair: the
+    bytes of seq its pairs read and of moves it writes)."""
+    with trace.span("hostnw.align") as sp:
+        device = torch.device(device)
+        table = pair_table(a_off, la, b_off, lb)
+        P = len(table)
+        moves = np.zeros(int(table[:, 1].sum() + table[:, 3].sum()), np.int8)
+        n = np.zeros(P, np.int32)
+        cells = table[:, 1] * strides(table[:, 1], table[:, 3])
+        if not len(seq):
+            seq = np.zeros(1, np.uint8)
+        seq_t = torch.from_numpy(seq).to(device)
+        # launches of about SLAB_BYTES of score rows each
+        cuts = np.unique(np.cumsum(cells * 4) // SLAB_BYTES,
+                         return_index=True)[1][1:]
+        groups = np.split(np.arange(P), cuts)
+        for g in groups:
+            sub = pair_table(*table[g, :4].T)
+            mv, cnt = host_nw(seq_t, torch.from_numpy(sub).to(device), sub)
+            if trace.ON:
+                trace.count("hostnw.pairs", len(g))
+                trace.count("hostnw.band_cells", int(cells[g].sum()))
+                trace.count("hostnw.move_bytes",
+                            int(sub[:, 1].sum() + sub[:, 3].sum()))
+            mv, cnt = mv.cpu().numpy(), cnt.cpu().numpy()
+            # the group's moves at the pairs' places in the whole layout
+            shift = np.repeat(table[g, 5] - sub[:, 5], sub[:, 1] + sub[:, 3])
+            moves[np.arange(len(mv)) + shift] = mv
+            n[g] = cnt
+        sp.set(pairs=P, launches=len(groups))
     return moves, n, table[:, 5]
 
 
@@ -312,7 +329,8 @@ class CenterStar:
     at, which are as many as the molecule's longest insertion there.
     `rows(m)` gives molecule m's rows in read order; `pair_mol` says each
     pair's molecule, `where` where the pairs were aligned (`card` on a CUDA
-    device, else `host`)."""
+    device, else `host`). Traced, the row build is one `hostnw.rows` span
+    (attributes `molecules`, `pairs`), after `align_pairs`' `hostnw.align`."""
 
     def __init__(self, mols: list[list[bytes]], device):
         M = len(mols)
@@ -335,52 +353,53 @@ class CenterStar:
             seq, off[a_idx], lens[a_idx], off[b_idx], lens[b_idx], device)
         self.pair_mol = mol_of[b_idx]
         self.where = "card" if torch.device(device).type == "cuda" else "host"
-
-        # every pair's moves in forward order, one after the other
-        P = len(b_idx)
-        pid = np.repeat(np.arange(P), n)
-        start = _exclusive(n.astype(np.int64))
-        t = np.arange(len(pid)) - start[pid]
-        fwd = moves[mv_off[pid] + n[pid] - 1 - t]
-        on_a, on_b = fwd != LEFT, fwd != UP
-        ex_a = np.cumsum(on_a) - on_a
-        ex_b = np.cumsum(on_b) - on_b
-        pos = ex_a - ex_a[start[pid]]              # center bases before it
-        bpos = ex_b - ex_b[start[pid]]             # read bases before it
-        byte = np.where(on_b, seq[np.minimum(off[b_idx][pid] + bpos,
-                                             len(seq) - 1)], _GAP_BYTE)
-        # insertion slots: slot s of a molecule stands before center base s
-        lc = lens[center]
-        slot0 = _exclusive(lc + 1)
-        key = slot0[self.pair_mol[pid]] + pos
-        k = np.arange(len(fwd))
-        last = np.maximum.accumulate(np.where(on_a, k, start[pid] - 1))
-        ins = k - last - 1                         # place in its insertion
-        left = ~on_a
-        width = np.zeros(int(slot0[-1] + lc[-1] + 1), np.int64)
-        np.maximum.at(width, key[left], ins[left] + 1)
-        # columns: each slot's insertion columns, then its center base
-        slot_mol = np.repeat(np.arange(M), lc + 1)
-        ex = _exclusive(width + 1)
-        ins_start = ex - ex[slot0][slot_mol]
-        base_col = ins_start + width
-        self.ncol = np.add.reduceat(width, slot0) + lc
-        self.nreads = nreads
-        self.moff = _exclusive(nreads * self.ncol)
-        mat = np.full(int(self.moff[-1] + nreads[-1] * self.ncol[-1]),
-                      _GAP_BYTE, np.uint8)
-        # the center rows
-        cm = np.repeat(np.arange(M), lc)
-        cp = np.arange(len(cm)) - _exclusive(lc)[cm]
-        crow = center - first
-        mat[self.moff[cm] + crow[cm] * self.ncol[cm]
-            + base_col[slot0[cm] + cp]] = seq[off[center][cm] + cp]
-        # every read's bases, gaps and insertions
-        pm = self.pair_mol[pid]
-        row = (b_idx - first[self.pair_mol])[pid]
-        col = np.where(on_a, base_col[key], ins_start[key] + ins)
-        mat[self.moff[pm] + row * self.ncol[pm] + col] = byte
-        self.mat = mat
+        # the rows, built from every pair's moves at once
+        with trace.span("hostnw.rows", molecules=M, pairs=len(b_idx)):
+            # every pair's moves in forward order, one after the other
+            P = len(b_idx)
+            pid = np.repeat(np.arange(P), n)
+            start = _exclusive(n.astype(np.int64))
+            t = np.arange(len(pid)) - start[pid]
+            fwd = moves[mv_off[pid] + n[pid] - 1 - t]
+            on_a, on_b = fwd != LEFT, fwd != UP
+            ex_a = np.cumsum(on_a) - on_a
+            ex_b = np.cumsum(on_b) - on_b
+            pos = ex_a - ex_a[start[pid]]              # center bases before it
+            bpos = ex_b - ex_b[start[pid]]             # read bases before it
+            byte = np.where(on_b, seq[np.minimum(off[b_idx][pid] + bpos,
+                                                 len(seq) - 1)], _GAP_BYTE)
+            # insertion slots: slot s of a molecule stands before center base s
+            lc = lens[center]
+            slot0 = _exclusive(lc + 1)
+            key = slot0[self.pair_mol[pid]] + pos
+            k = np.arange(len(fwd))
+            last = np.maximum.accumulate(np.where(on_a, k, start[pid] - 1))
+            ins = k - last - 1                         # place in its insertion
+            left = ~on_a
+            width = np.zeros(int(slot0[-1] + lc[-1] + 1), np.int64)
+            np.maximum.at(width, key[left], ins[left] + 1)
+            # columns: each slot's insertion columns, then its center base
+            slot_mol = np.repeat(np.arange(M), lc + 1)
+            ex = _exclusive(width + 1)
+            ins_start = ex - ex[slot0][slot_mol]
+            base_col = ins_start + width
+            self.ncol = np.add.reduceat(width, slot0) + lc
+            self.nreads = nreads
+            self.moff = _exclusive(nreads * self.ncol)
+            mat = np.full(int(self.moff[-1] + nreads[-1] * self.ncol[-1]),
+                          _GAP_BYTE, np.uint8)
+            # the center rows
+            cm = np.repeat(np.arange(M), lc)
+            cp = np.arange(len(cm)) - _exclusive(lc)[cm]
+            crow = center - first
+            mat[self.moff[cm] + crow[cm] * self.ncol[cm]
+                + base_col[slot0[cm] + cp]] = seq[off[center][cm] + cp]
+            # every read's bases, gaps and insertions
+            pm = self.pair_mol[pid]
+            row = (b_idx - first[self.pair_mol])[pid]
+            col = np.where(on_a, base_col[key], ins_start[key] + ins)
+            mat[self.moff[pm] + row * self.ncol[pm] + col] = byte
+            self.mat = mat
 
     def rows(self, m: int) -> list[bytes]:
         o, R, C = int(self.moff[m]), int(self.nreads[m]), int(self.ncol[m])

@@ -360,7 +360,9 @@ class BatchedConsensusEngine:
         `route`; `refine` in the second pass): short (1-2 reads), long (a
         center over max_center_len), n (a non-ACGT byte, when maxps <= 63),
         nopair (a bucket with no pair left), overflow (an assembly longer
-        than the device route's output row, when maxps <= 63) and device."""
+        than the device route's output row, when maxps <= 63) and device.
+        Counter `consensus.pairs` by `Lc`: the pairs each bucket sends to the
+        device (those the band's length rule keeps)."""
         results: list = [None] * len(molecules)
         # maxps <= 63 (the JAX engine's Pallas route): band by bucket, N
         # screen, overflow to the host engine; above (its jnp route): band
@@ -406,6 +408,8 @@ class BatchedConsensusEngine:
                         0 if centers_map is not None else len(info))
                     trace.count("consensus.pairs_dropped",
                                 offered - len(centers), **tag)
+                    trace.count("consensus.pairs", len(centers), Lc=Lc,
+                                **tag)
             if not centers:
                 host["nopair"] += [mi for mi, _, _ in info]
                 continue

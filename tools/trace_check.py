@@ -23,7 +23,14 @@ MAXREADS selection), each host route's and engine span's ms per 1,000
 molecules, the host-alignment pairs by route and where they ran, and
 where every launch lies among the spans (a band-kernel launch before its
 sub-batch's `consensus.wait` ends, a host-alignment launch inside its
-`consensus.host` span), and the parse's phases (counter
+`hostnw.align` span), the long route's spans (`hostnw.align`, `hostnw.rows`)
+inside their route's `consensus.host` span, its counters (`hostnw.pairs`,
+`.band_cells`, `.move_bytes`) and the buckets' (`consensus.pairs` by `Lc`)
+against the pair tables the generator's molecules give (the host counts
+where no molecule took the `nopair` or `overflow` route, which add pairs
+the generator cannot tell), each bucket's engine ms and band launches, the
+`hostnw` launches a call, their device ms and the rest of `hostnw.align`
+(the pack, upload and the downloads' waits), and the parse's phases (counter
 `consensus.parse_ns`: `decode`, `build`) beside its span, whose time they
 may not pass, with its counts (SEQ bases, SEQ bases spelled out, CIGAR
 ops, each kept cDNA's source, each drop's reason), and the collector: its
@@ -81,6 +88,57 @@ def expected_routes(mols, maxreads: int, max_center_len: int = 2048) -> dict:
     return out
 
 
+def band_cells(la: int, lb: int) -> int:
+    """The cells the host's `nw_align_banded` fills for a center of la and
+    a read of lb: la rows of min(2 band + 1, lb), band max(32, |la - lb| +
+    max(la, lb) // 10)."""
+    band = max(32, abs(la - lb) + max(la, lb) // 10)
+    return la * min(2 * band + 1, lb)
+
+
+def expected_pairs(mols, maxreads: int, max_center_len: int = 2048):
+    """What the pair tables of the molecules give, by the engine's rules:
+    ({Lc: pairs a bucket sends to the device}, {"pairs", "band_cells",
+    "move_bytes"} of the long and N routes' pairs; each molecule's center
+    its first longest selected read)."""
+    buckets: dict = {}
+    host = {"pairs": 0, "band_cells": 0, "move_bytes": 0}
+    for reads, des in zip(mols.reads, mols.des):
+        sel = [reads[i] for i in sorted(range(len(reads)),
+                                        key=lambda i: des[i])[:maxreads]]
+        sel = [s for s in sel if s]
+        if len(sel) <= 2:
+            continue
+        c = max(range(len(sel)), key=lambda i: len(sel[i]))
+        la = len(sel[c])
+        lbs = [len(s) for i, s in enumerate(sel) if i != c]
+        if la > max_center_len or any(s.translate(None, b"ACGTacgt")
+                                      for s in sel):
+            for lb in lbs:
+                host["pairs"] += 1
+                host["band_cells"] += band_cells(la, lb)
+                host["move_bytes"] += la + lb
+            continue
+        Lc = max(256, 1 << (la - 1).bit_length())
+        W = 32 if Lc <= 512 else 64
+        buckets[Lc] = buckets.get(Lc, 0) + sum(abs(lb - la) < W // 2 - 4
+                                               for lb in lbs)
+    return buckets, host
+
+
+def bucket_of(snap) -> dict:
+    """{span id: Lc} of the engine's spans: each from the bucket whose
+    `consensus.pack` span (the one with an `Lc`) opened last before it in
+    its call."""
+    out, cur = {}, {}
+    for s in snap["spans"]:
+        if s["name"] == "consensus.pack" and "Lc" in s["attrs"]:
+            cur[s["call"]] = s["attrs"]["Lc"]
+        elif s["name"] in ENGINE and s["call"] in cur:
+            out[s["id"]] = cur[s["call"]]
+    return out
+
+
 def ratio(a: float, b: float) -> float | None:
     """a / b; None where b is 0 (a cell with no 1-2-read molecule gives
     the host-engine hook nothing to time)."""
@@ -123,7 +181,8 @@ def agree(args) -> None:
     from sicelore_tpu_torch.utils import trace
     bench = cell.load_json(ROOT / "BENCHMARK.json")
     over = {"mix": {"molecules": args.molecules}} if args.molecules else None
-    _, config, traffic, _ = cell.load_cell(bench, args.workload, over)
+    _, config, traffic, drv = cell.load_cell(bench, args.workload, over)
+    make = getattr(drv, "make_molecules", gen.make_molecules)
     for seed in args.seeds:
         starts = []         # (host ns, generation) of every collection
 
@@ -162,9 +221,27 @@ def agree(args) -> None:
             if c["name"] == "consensus.molecules":
                 routes[c["attrs"]["route"]] = routes.get(
                     c["attrs"]["route"], 0) + c["value"]
-        mols = gen.make_molecules(np.random.default_rng(seed),
-                                  traffic["mix"])
+        mols = make(np.random.default_rng(seed), traffic["mix"])
         want = expected_routes(mols, config["consensus"]["maxreads"])
+        want_lc, want_host = expected_pairs(mols,
+                                            config["consensus"]["maxreads"])
+        counted: dict = {}
+        for c in snap["counters"]:
+            if c["name"] == "consensus.pairs" and "refine" not in c["attrs"]:
+                counted[c["attrs"]["Lc"]] = counted.get(c["attrs"]["Lc"],
+                                                        0) + c["value"]
+            elif c["name"].startswith("hostnw."):
+                k = c["name"].split(".", 1)[1]
+                counted[k] = counted.get(k, 0) + c["value"]
+        n_calls = len(calls)
+        host_exact = not routes.get("nopair") and not routes.get("overflow")
+        pair_tables = {
+            "by_lc": all(counted.get(lc, 0) == v * n_calls
+                         for lc, v in want_lc.items())
+            and {k for k in counted if isinstance(k, int)} <= set(want_lc),
+            "host": all(counted.get(k, 0) == v * n_calls
+                        for k, v in want_host.items()) if host_exact
+            else None}
         by_id = {s["id"]: s for s in snap["spans"]}
         waits = sorted((s for s in snap["spans"]
                         if s["name"] == "consensus.wait"),
@@ -201,6 +278,33 @@ def agree(args) -> None:
         for t, g in starts:
             if any(c["start"] <= t <= c["end"] for c in calls):
                 in_calls[g] = in_calls.get(g, 0) + 1
+        outside = 0
+        for sp in snap["spans"]:
+            if sp["name"] in ("hostnw.align", "hostnw.rows"):
+                host_sp = by_id.get(sp["parent"])
+                outside += not (
+                    host_sp is not None and host_sp["name"] == "consensus.host"
+                    and host_sp["start"] <= sp["start"] <= sp["end"]
+                    <= host_sp["end"])
+        lc_of = bucket_of(snap)
+        lc_ms: dict = {}
+        for sp in snap["spans"]:
+            if sp["id"] in lc_of:
+                k = f"{lc_of[sp['id']]}.{sp['name'].split('.')[-1]}"
+                lc_ms[k] = lc_ms.get(k, 0.0) + (sp["end"] - sp["start"]) \
+                    / 1e6 * 1000 / units
+        band_by_lc: dict = {}
+        hostnw_ms = 0.0
+        for x in snap["launches"]:
+            ms = (x["end"] - x["start"]) / 1e6
+            if x["name"] == "hostnw":
+                hostnw_ms += ms
+            elif x["span"] in lc_of:
+                k = lc_of[x["span"]]
+                n0, t0 = band_by_lc.get(k, (0, 0.0))
+                band_by_lc[k] = (n0 + 1, t0 + ms)
+        align_ms = sum(sp["end"] - sp["start"] for sp in snap["spans"]
+                       if sp["name"] == "hostnw.align") / 1e6
         t_first = min(x["enqueue"] for x in snap["launches"]) \
             if snap["launches"] else 0
         detail = []
@@ -231,6 +335,23 @@ def agree(args) -> None:
             "host_pairs_per_call": {k: v / len(calls) for k, v in
                                     sorted(pairs.items())},
             "launches": len(snap["launches"]), "launches_outside": bad,
+            "hostnw_spans_outside_route": outside,
+            "pair_tables_agree": pair_tables,
+            "pairs_per_call": {str(k): v / n_calls
+                               for k, v in sorted(counted.items(),
+                                                  key=lambda kv: str(kv[0]))},
+            "pairs_per_call_generator": {
+                **{str(k): v for k, v in sorted(want_lc.items())},
+                **want_host},
+            "bucket_ms_per_kumi": dict(sorted(lc_ms.items())),
+            "band_launches_per_call_ms_by_lc": {
+                str(k): [n / n_calls, t / n_calls]
+                for k, (n, t) in sorted(band_by_lc.items())},
+            "hostnw_launches_per_call": sum(
+                x["name"] == "hostnw" for x in snap["launches"]) / n_calls,
+            "hostnw_device_ms_per_kumi": hostnw_ms * 1000 / units,
+            "hostnw_align_rest_ms_per_kumi": (align_ms - hostnw_ms) * 1000
+            / units,
             "spans_per_call": len(snap["spans"]) / len(calls),
             "span_ms_per_kumi": per_k, "metrics": m,
             "host_less_gc_ratio": ratio(
